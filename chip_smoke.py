@@ -5,9 +5,10 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the three hand-written kernels from ``tpusparse_torch/csrc`` with
-``nvcc`` (first use), then, at the reference workload (``Y = X @ A``, fp32,
-M = N = 4096, ~50% sparsity in A and X, seed 0) for B = 1 and B = 8:
+It builds the six hand-written kernels from ``tpusparse_torch/csrc`` with
+``nvcc`` (one process per source, first use), then, at the reference
+workload (``Y = X @ A``, fp32, M = N = 4096, ~50% sparsity in A and X,
+seed 0) for B = 1 and B = 8:
 
 1. drives the headline path through the public API (``SpmvTester`` over the
    headline registry: ``dense_torch``, ``dense_cuda``, ``sell_cuda``,
@@ -21,9 +22,26 @@ M = N = 4096, ~50% sparsity in A and X, seed 0) for B = 1 and B = 8:
    through the device plan under ``torch.cuda.set_sync_debug_mode("error")``,
    plus an all-zero X;
 4. holds K1's bf16 and int8 storage lanes against their plain versions
-   (atol 1e-4; these lanes are outside the 1e-3 contract).
+   (atol 1e-4; these lanes are outside the 1e-3 contract);
 
-It prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+and then, on the router's skew workload (8192 x 8192 powerlaw, d = 0.15,
+seed 0; X ~50% nonzero):
+
+5. drives the skew path through the public API: ``auto_format`` must pick
+   RSELL at B = 1 and ASP at B = 8, and ``spmv``/``spmm`` on them must
+   launch K4 (RSELL), K5 (the unpermute of the sorted pack) and K9 (ASP),
+   with every launch counter set to 0 just before and read just after;
+6. holds K4, K5 and K9 at B = 1 and 8 against their plain versions and the
+   float64 oracle, with the same timings and a library call each (cuSPARSE
+   CSR for K4, ``torch.index_select`` for K5, cuBLAS for K9);
+7. runs ASP through the device plan on a structured X (a quarter of the
+   windows live) under ``torch.cuda.set_sync_debug_mode("error")``, plus an
+   all-zero X, and K4 on a flat (run = 1) pack and on an unsorted pack
+   (no unpermute, so no K5 launch).
+
+Kernel against plain version: atol 1e-4 (the same products summed in
+another order); against the float64 oracle: atol 1e-3 (the repo's
+contract). It prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises, so the
 exit code is not 0 and no result line is printed. With no CUDA device it
 exits with code 2 before doing anything.
@@ -38,25 +56,38 @@ import time
 import numpy as np
 import torch
 
-from tpusparse_torch import AwspMatrix, SellMatrix, SpmvConfig, spmv
+from tpusparse_torch import (AspMatrix, AwspMatrix, RsellMatrix, SellMatrix,
+                             SpmvConfig, auto_format, matrix_stats, spmm,
+                             spmv)
 from tpusparse_torch.bench.roofline import (ARTIFACT_SHARE, card_info,
                                             detect_hbm_gbps,
                                             roofline_fraction)
 from tpusparse_torch.bench.runner import device_time
 from tpusparse_torch.bench.suite import registry
+from tpusparse_torch.formats.auto import route
 from tpusparse_torch.kernels import _build
+from tpusparse_torch.kernels.asp_spmv import asp_spmm, asp_spmm_plain
 from tpusparse_torch.kernels.awsp_spmv import awsp_spmm, awsp_spmm_plain
 from tpusparse_torch.kernels.dense import dense_cuda, dense_plain, dense_torch
+from tpusparse_torch.kernels.permute import (permute_columns,
+                                             permute_columns_plain)
+from tpusparse_torch.kernels.rsell_spmv import rsell_spmm, rsell_spmm_plain
 from tpusparse_torch.kernels.sell_spmv import sell_spmm, sell_spmm_plain
 from tpusparse_torch.testing import generators, reference
 from tpusparse_torch.testing.tester import KernelEntry, SpmvTester
 
 ATOL = 1e-3            # the repo's contract against the float64 oracle
-LANE_ATOL = 1e-4       # bf16/int8 lanes against their plain versions
+PLAIN_ATOL = 1e-4      # kernel against its plain version; bf16/int8 lanes
 FP32_TFLOPS = 67.0     # H100 SXM fp32 peak outside the tensor cores
 BATCHES = (1, 8)
 WRAPPERS = {"sell_spmv": sell_spmm, "dense": dense_cuda,
             "awsp_spmv": awsp_spmm}
+SKEW_WRAPPERS = {"rsell_spmv": rsell_spmm, "permute": permute_columns,
+                 "asp_spmv": asp_spmm}
+# the router's skew workload (tpusparse/formats/auto.py, BENCH.md's 8192^2
+# powerlaw row) and the batch at which each kernel runs on its path
+SKEW = dict(m=8192, n=8192, density=0.15, distribution="powerlaw", seed=0)
+SKEW_BATCH = {"rsell_spmv": 1, "permute": 1, "asp_spmv": 8}
 META = {
     "sell_spmv": ("tpusparse_torch/csrc/sell_spmv.cu",
                   "tpusparse/kernels/sell_spmv.py:115"),
@@ -64,6 +95,12 @@ META = {
               "tpusparse/kernels/dense.py:90"),
     "awsp_spmv": ("tpusparse_torch/csrc/awsp_spmv.cu",
                   "tpusparse/kernels/awsp_spmv.py:121"),
+    "rsell_spmv": ("tpusparse_torch/csrc/rsell_spmv.cu",
+                   "tpusparse/kernels/rsell_spmv.py:212"),
+    "permute": ("tpusparse_torch/csrc/permute.cu",
+                "tpusparse/kernels/permute.py:86"),
+    "asp_spmv": ("tpusparse_torch/csrc/asp_spmv.cu",
+                 "tpusparse/kernels/asp_spmv.py:69"),
 }
 
 
@@ -116,8 +153,9 @@ def main_path() -> dict[str, int]:
 
 
 def kernel_cases(a, dev):
-    """For each kernel: a function of x (B, m) giving (kernel, plain,
-    library) callables and the bytes and flops of one call."""
+    """For each headline kernel: a function of (x (B, m) on the card, the
+    oracle y (B, n)) giving (kernel, plain, library) callables, the bytes
+    and flops of one call, and the oracle of the kernel's own output."""
     m, n = a.shape
     nnz = int((a != 0).sum())
     a_dev = torch.from_numpy(a).to(dev)
@@ -127,52 +165,103 @@ def kernel_cases(a, dev):
     awsp = AwspMatrix.from_dense(a, g=8, device=dev)
     plan, k = awsp._full_plan(), awsp._count(awsp.n_groups)
 
-    def cusparse(xt):
-        return (lambda: at_csr @ xt[0]) if xt.shape[0] == 1 else \
-            (lambda: at_csr @ xt.T)
-
-    def sell_case(xt):
+    def sell_case(xt, y_ref):
         args = (sell.idx, sell.vals, xt)
         nbytes = sell.device_bytes() + 4 * (xt.numel() + xt.shape[0] * n)
         return (lambda: sell_spmm(*args, n=n),
-                lambda: sell_spmm_plain(*args, n=n), cusparse(xt),
-                nbytes, 2 * nnz * xt.shape[0])
+                lambda: sell_spmm_plain(*args, n=n), cusparse(at_csr, xt),
+                nbytes, 2 * nnz * xt.shape[0], y_ref)
 
-    def dense_case(xt):
+    def dense_case(xt, y_ref):
         nbytes = 4 * (m * n + xt.numel() + xt.shape[0] * n)
         return (lambda: dense_cuda(a_dev, xt), lambda: dense_plain(a_dev, xt),
                 lambda: dense_torch(a_dev, xt), nbytes,
-                2 * m * n * xt.shape[0])
+                2 * m * n * xt.shape[0], y_ref)
 
-    def awsp_case(xt):
+    def awsp_case(xt, y_ref):
         args = (plan, k, awsp.idx, awsp.vals, xt)
         nbytes = awsp.device_bytes() + 4 * (xt.numel() + xt.shape[0] * n
                                             + plan.numel() + 1)
         return (lambda: awsp_spmm(*args, g=awsp.g, n=n),
-                lambda: awsp_spmm_plain(*args, g=awsp.g, n=n), cusparse(xt),
-                nbytes, 2 * nnz * xt.shape[0])
+                lambda: awsp_spmm_plain(*args, g=awsp.g, n=n),
+                cusparse(at_csr, xt), nbytes, 2 * nnz * xt.shape[0], y_ref)
 
     return {"sell_spmv": sell_case, "dense": dense_case,
             "awsp_spmv": awsp_case}
 
 
-def check_kernels(a, xs, dev) -> dict[str, dict]:
+def cusparse(at_csr, xt):
+    """cuSPARSE CSR of A.T times x: the library yardstick of K1, K3, K4."""
+    return (lambda: at_csr @ xt[0]) if xt.shape[0] == 1 else \
+        (lambda: at_csr @ xt.T)
+
+
+def skew_kernel_cases(a, r: RsellMatrix, asp: AspMatrix, dev):
+    """The same, for the skew path's kernels: K4 on the RSELL pack (its
+    output is in the pack's sorted column order), K5 on the oracle in that
+    order, K9 on the ASP matrix with this X's host plan."""
+    m, n = a.shape
+    nnz = int((a != 0).sum())
+    np_ = r.padded[1]
+    at_csr = torch.from_numpy(np.ascontiguousarray(a.T)).to(dev) \
+        .to_sparse_csr()
+    a_dev = torch.from_numpy(a).to(dev)
+    src = r.perm_src
+    src_long = src.long()
+    inv_perm = r.inv_perm
+
+    def sorted_order(y_ref):
+        ys = np.zeros((y_ref.shape[0], np_), np.float32)
+        ys[:, inv_perm[:n]] = y_ref
+        return ys
+
+    def rsell_case(xt, y_ref):
+        args = (r.cj, r.ct, r.idx, r.vals, xt)
+        nbytes = r.device_bytes() + 4 * (xt.numel() + xt.shape[0] * np_)
+        return (lambda: rsell_spmm(*args, n_padded=np_, plan=r._work),
+                lambda: rsell_spmm_plain(*args, n_padded=np_),
+                cusparse(at_csr, xt), nbytes, 2 * nnz * xt.shape[0],
+                sorted_order(y_ref))
+
+    def permute_case(xt, y_ref):
+        ys = torch.from_numpy(sorted_order(y_ref)).to(dev)
+        nbytes = 4 * (ys.numel() + src.numel() + ys.shape[0] * n)
+        return (lambda: permute_columns(ys, src),
+                lambda: permute_columns_plain(ys, src),
+                lambda: torch.index_select(ys, 1, src_long), nbytes, 0,
+                y_ref)
+
+    def asp_case(xt, y_ref):
+        plan = torch.from_numpy(asp.plan(xt.cpu().numpy())).to(dev)
+        k = asp._count(plan.numel())
+        live = plan.numel()                 # windows this X needs
+        nbytes = 4 * (live * 128 * n + xt.numel() + xt.shape[0] * n
+                      + plan.numel() + 1)
+        return (lambda: asp_spmm(plan, k, asp.a_pad, xt, n=n),
+                lambda: asp_spmm_plain(plan, k, asp.a_pad, xt, n=n),
+                lambda: dense_torch(a_dev, xt), nbytes,
+                2 * live * 128 * n * xt.shape[0], y_ref)
+
+    return {"rsell_spmv": rsell_case, "permute": permute_case,
+            "asp_spmv": asp_case}
+
+
+def check_kernels(cases, a, xs, dev) -> dict[str, dict]:
     """Kernel vs plain version vs oracle, and the three timings."""
     hbm = detect_hbm_gbps() * 1e9
-    cases = kernel_cases(a, dev)
     out = {name: {"by_batch": {}} for name in cases}
     for batch, x in zip(BATCHES, xs):
         xt = torch.from_numpy(x).to(dev)
         y_ref = reference.sgemm_cpu(x, a)
         for name, case in cases.items():
-            kern, plain, lib, nbytes, flops = case(xt)
+            kern, plain, lib, nbytes, flops, want = case(xt, y_ref)
             yk = kern()
             yp = plain()
             torch.cuda.synchronize()
-            e_plain, e_ref = max_err(yk, yp), max_err(yk, y_ref)
-            require(e_plain <= ATOL and e_ref <= ATOL,
-                    f"{name} B={batch}: |kernel-plain| {e_plain:.3e}, "
-                    f"|kernel-oracle| {e_ref:.3e} > {ATOL}")
+            e_plain, e_ref = max_err(yk, yp), max_err(yk, want)
+            require(e_plain <= PLAIN_ATOL and e_ref <= ATOL,
+                    f"{name} B={batch}: |kernel-plain| {e_plain:.3e} > "
+                    f"{PLAIN_ATOL} or |kernel-oracle| {e_ref:.3e} > {ATOL}")
             ms = device_time(kern, name=name).seconds * 1e3
             plain_ms = device_time(plain, name=name, warmup=1,
                                    reps=5).seconds * 1e3
@@ -191,9 +280,9 @@ def check_kernels(a, xs, dev) -> dict[str, dict]:
             out[name]["by_batch"][batch] = row
             print(f"{name} B={batch}: max|k-plain|={e_plain:.3e} "
                   f"max|k-oracle|={e_ref:.3e} | {ms * 1e3:.2f} us, bound "
-                  f"{bound * 1e3:.2f} us ({row['bound_by']}), share "
-                  f"{share:.3f} | plain {plain_ms * 1e3:.2f} us | library "
-                  f"{lib_ms * 1e3:.2f} us")
+                  f"{bound * 1e3:.2f} us ({row['bound_by']}, "
+                  f"{nbytes / 1e6:.2f} MB), share {share:.3f} | plain "
+                  f"{plain_ms * 1e3:.2f} us | library {lib_ms * 1e3:.2f} us")
     return out
 
 
@@ -227,7 +316,7 @@ def check_device_plan(a, x1, dev) -> None:
     print(f"awsp device plan (1/4 windows live, g=1, sync debug 'error'): "
           f"|device-static|={e_static:.3e} |device-oracle|={e_ref:.3e} "
           f"all-zero X -> zero: {zero_ok}")
-    require(e_static <= LANE_ATOL and e_ref <= ATOL and zero_ok,
+    require(e_static <= PLAIN_ATOL and e_ref <= ATOL and zero_ok,
             "awsp device plan disagrees")
 
 
@@ -245,7 +334,124 @@ def check_lanes(a, x8, dev) -> None:
               f"(|k-oracle|={max_err(yk, reference.sgemm_cpu(x8, a)):.3e}, "
               f"outside the contract), {ms * 1e3:.2f} us, "
               f"{f.device_bytes() / 1e6:.1f} MB")
-        require(err <= LANE_ATOL, f"sell lane {lane}: {err:.3e} > {LANE_ATOL}")
+        require(err <= PLAIN_ATOL,
+                f"sell lane {lane}: {err:.3e} > {PLAIN_ATOL}")
+
+
+def skew_path(a, x1, x8, dev) -> tuple[RsellMatrix, AspMatrix, dict]:
+    """The router's skew path through the public API, counted."""
+    m, n = a.shape
+    t0 = time.perf_counter()
+    stats = matrix_stats(a)
+    routes = {b: route(m, n, stats, expect_batch=b) for b in BATCHES}
+    print(f"-- skew path: {m}x{n} {SKEW['distribution']} d={SKEW['density']}"
+          f", nnz {stats['nnz']}, w_global {stats['w_global']}, w_typical "
+          f"{stats['w_typical']}; route B=1 -> {routes[1]!r}, B=8 -> "
+          f"{routes[8]!r}")
+    require(routes == {1: "rsell", 8: "asp"}, f"routes {routes}")
+    r = auto_format(a, expect_batch=1, stats=stats)       # device=None: GPU
+    asp = auto_format(a, expect_batch=8, stats=stats)
+    require(isinstance(r, RsellMatrix) and isinstance(asp, AspMatrix),
+            f"auto_format gave {type(r).__name__}, {type(asp).__name__}")
+    require(r.perm_src is not None and r.run == 8,
+            "the skew pack should be sorted and run-aligned")
+    print(f"   {r!r}\n   {asp!r}\n   stats + packs + upload "
+          f"{time.perf_counter() - t0:.1f} s")
+    x1t, x8t = torch.from_numpy(x1).to(dev), torch.from_numpy(x8).to(dev)
+    torch.cuda.synchronize()
+    for w in SKEW_WRAPPERS.values():
+        w.launches = 0
+    y1 = spmv(r, x1t)
+    y8 = spmm(asp, x8t)                # CUDA tensor -> ASP device plan
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in SKEW_WRAPPERS.items()}
+    print("launches on the skew path:", json.dumps(launches))
+    for name, k in launches.items():
+        require(k > 0, f"{name}: no launch on the skew path")
+    e1 = max_err(y1, reference.sgemv_cpu(x1, a))
+    e8 = max_err(y8, reference.sgemm_cpu(x8, a))
+    print(f"   spmv(rsell) |y-oracle|={e1:.3e}, spmm(asp, B=8) "
+          f"|y-oracle|={e8:.3e}")
+    require(y1.shape == (n,) and y8.shape == (8, n) and e1 <= ATOL
+            and e8 <= ATOL, "skew path disagrees with the oracle")
+    return r, asp, launches
+
+
+def check_asp_device_plan(asp: AspMatrix, a, x8, dev) -> None:
+    """ASP device plan on a structured X, with host syncs made errors."""
+    m = a.shape[0]
+    live = (np.arange(m) // 128) % 4 == 0          # a quarter of the windows
+    xs = np.where(live, x8, 0.0).astype(np.float32)
+    xs_t = torch.from_numpy(xs).to(dev)
+    zero = torch.zeros_like(xs_t)
+    torch.cuda.synchronize()
+    before = asp_spmm.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y1_dev = spmv(asp, xs_t[0])              # CUDA tensor -> device plan
+        y8_dev = spmm(asp, xs_t)
+        y_zero = spmm(asp, zero)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require(asp_spmm.launches == before + 3, "asp device plan: no launches")
+    require(len(asp.plan(xs)) == asp.n_units // 4,
+            f"host plan has {len(asp.plan(xs))} windows")
+    e_static = max(max_err(y1_dev, spmv(asp, xs[0])),
+                   max_err(y8_dev, spmm(asp, xs)))   # host data: host plan
+    e_ref = max(max_err(y1_dev, reference.sgemv_cpu(xs[0], a)),
+                max_err(y8_dev, reference.sgemm_cpu(xs, a)))
+    zero_ok = int(torch.count_nonzero(y_zero)) == 0
+    print(f"asp device plan (1/4 windows live, B=1 and 8, sync debug "
+          f"'error'): |device-static|={e_static:.3e} "
+          f"|device-oracle|={e_ref:.3e} all-zero X -> zero: {zero_ok}")
+    require(e_static <= PLAIN_ATOL and e_ref <= ATOL and zero_ok,
+            "asp device plan disagrees")
+
+
+def check_rsell_bodies(dev) -> None:
+    """K4 on a flat (run = 1) pack and on an unsorted pack, which needs no
+    unpermute: each against its plain version and the oracle."""
+    packs = {"flat": (256, 2048, 0.01, 6), "unsorted": (1536, 2048, 0.25, 5)}
+    for what, (m, n, d, seed) in packs.items():
+        a = generators.random_sparse_matrix(m, n, density=d, seed=seed)
+        r = RsellMatrix.from_dense(a, device=dev)
+        ok = r.run == 1 if what == "flat" else r.perm_src is None
+        require(ok, f"rsell {what}: run={r.run}, sorted="
+                    f"{r.perm_src is not None}")
+        for batch in BATCHES:
+            x = generators.random_sparse_batch(batch, m, 0.5, seed)
+            xt = torch.from_numpy(x).to(dev)
+            args = (r.cj, r.ct, r.idx, r.vals, xt)
+            yk = rsell_spmm(*args, n_padded=r.padded[1], plan=r._work)
+            e_plain = max_err(yk, rsell_spmm_plain(*args,
+                                                   n_padded=r.padded[1]))
+            before = permute_columns.launches
+            e_ref = max_err(r.spmm(xt), reference.sgemm_cpu(x, a))
+            permuted = permute_columns.launches - before
+            print(f"rsell {what} (run={r.run}, {len(r.cj)} chunks) "
+                  f"B={batch}: max|k-plain|={e_plain:.3e} "
+                  f"max|y-oracle|={e_ref:.3e}, K5 launches {permuted}")
+            require(e_plain <= PLAIN_ATOL and e_ref <= ATOL,
+                    f"rsell {what} B={batch} disagrees")
+            require(permuted == (0 if what == "unsorted" else 1),
+                    f"rsell {what}: {permuted} K5 launches")
+
+
+def kernel_rows(results, launches, batch_of) -> list[dict]:
+    rows = []
+    for name, res in results.items():
+        main = res["by_batch"][batch_of.get(name, 1)]
+        rows.append({
+            "name": name, "route": "cuda", "source": META[name][0],
+            "replaces": META[name][1], "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in res["by_batch"].values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "by_batch": {str(b): r for b, r in res["by_batch"].items()},
+        })
+    return rows
 
 
 def main() -> int:
@@ -267,23 +473,25 @@ def main() -> int:
                                         seed=cfg.seed)
     x1 = generators.random_sparse_vector(cfg.m, cfg.x_density, cfg.seed)
     x8 = generators.random_sparse_batch(8, cfg.m, cfg.x_density, cfg.seed)
-    results = check_kernels(a, (x1[None, :], x8), dev)
+    results = check_kernels(kernel_cases(a, dev), a, (x1[None, :], x8), dev)
     check_device_plan(a, x1, dev)
     check_lanes(a, x8, dev)
 
-    kernels = []
-    for name, res in results.items():
-        b1 = res["by_batch"][1]
-        kernels.append({
-            "name": name, "route": "cuda", "source": META[name][0],
-            "replaces": META[name][1], "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"]
-                               for r in res["by_batch"].values()),
-            "ms": b1["ms"], "plain_ms": b1["plain_ms"],
-            "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
-            "library_ms": b1["library_ms"],
-            "by_batch": {str(b): r for b, r in res["by_batch"].items()},
-        })
+    a_s = generators.random_sparse_matrix(
+        SKEW["m"], SKEW["n"], density=SKEW["density"], seed=SKEW["seed"],
+        distribution=SKEW["distribution"])
+    x1_s = generators.random_sparse_vector(SKEW["m"], cfg.x_density,
+                                           SKEW["seed"])
+    x8_s = generators.random_sparse_batch(8, SKEW["m"], cfg.x_density,
+                                          SKEW["seed"])
+    r, asp, skew_launches = skew_path(a_s, x1_s, x8_s, dev)
+    skew_results = check_kernels(skew_kernel_cases(a_s, r, asp, dev), a_s,
+                                 (x1_s[None, :], x8_s), dev)
+    check_asp_device_plan(asp, a_s, x8_s, dev)
+    check_rsell_bodies(dev)
+
+    kernels = kernel_rows(results, launches, {}) + \
+        kernel_rows(skew_results, skew_launches, SKEW_BATCH)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card["line"])

@@ -1,7 +1,8 @@
 """tpusparse_torch: the PyTorch/CUDA port of tpusparse for NVIDIA Hopper.
 
-``Y = X @ A`` SpMV/SpMM over SELL and AWSP packs with kernels written by
-hand for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use. Entry
+``Y = X @ A`` SpMV/SpMM over SELL, AWSP, RSELL and ASP packs, picked by
+``auto_format`` or by hand, with kernels written by hand for ``sm_90a``
+(``csrc/``), built with ``nvcc`` at first use. Entry
 points run on the GPU unless the caller passes ``device="cpu"``, which runs
 each kernel's plain PyTorch version. The package imports torch and numpy
 only; the JAX package ``tpusparse`` is its reference and is never imported.
@@ -9,10 +10,15 @@ only; the JAX package ``tpusparse`` is its reference and is never imported.
 
 from tpusparse_torch.config import SpmvConfig  # noqa: F401
 from tpusparse_torch.formats import (  # noqa: F401
+    AspMatrix,
     AwspMatrix,
     CsrMatrix,
+    RsellMatrix,
     SellMatrix,
+    auto_format,
     from_reference_arrays,
+    matrix_stats,
+    matrix_stats_csr,
 )
 from tpusparse_torch.ops import spmm, spmv  # noqa: F401
 from tpusparse_torch.testing import KernelEntry, SpmvTester  # noqa: F401

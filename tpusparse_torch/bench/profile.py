@@ -2,9 +2,11 @@
 device time goes, kernel by kernel.
 
 For each headline entry at B = 1 and B = 8 (the canonical 4096 x 4096,
-d = 0.5 workload), it traces ``REPS`` calls with ``torch.profiler``, each
-after the same read-only 256 MB L2 flush as ``bench.runner``, and prints one
-JSON line per entry: every CUDA kernel's device time per call (the flush's
+d = 0.5 workload), and for the router's skew path (8192 x 8192 powerlaw,
+d = 0.15: RSELL with its unpermute at B = 1, ASP at B = 8, as
+``auto_format`` picks them), it traces ``REPS`` calls with
+``torch.profiler``, each after the same read-only 256 MB L2 flush as
+``bench.runner``, and prints one JSON line per entry: every CUDA kernel's device time per call (the flush's
 reduction and the memset it issues left out) and their sum. Comparing the sum with ``device_time``'s
 per-call time shows how much of a call the device spends idle between
 kernels. Needs a CUDA device.
@@ -17,8 +19,10 @@ import json
 import torch
 
 from tpusparse_torch.bench.runner import FLUSH_BYTES
-from tpusparse_torch.bench.suite import _canonical_workload, registry
+from tpusparse_torch.bench.suite import _canonical_workload, _fmt_run, registry
 from tpusparse_torch.config import SpmvConfig
+from tpusparse_torch.formats.auto import auto_format, matrix_stats
+from tpusparse_torch.testing import generators
 from tpusparse_torch.utils import resolve_device
 
 REPS = 10
@@ -48,17 +52,30 @@ def kernel_times(run, fmt, x) -> dict[str, float]:
     return out
 
 
+def _report(name: str, batch: int, times: dict[str, float]) -> None:
+    print(json.dumps({"entry": name, "batch": batch,
+                      "kernel_us_per_call": times,
+                      "sum_us": sum(times.values()),
+                      "device": torch.cuda.get_device_name(0)}))
+
+
 def main() -> None:
     dev = resolve_device(None)
     for batch in (1, 8):
         a, x = _canonical_workload(SpmvConfig(batch=batch))
         xt = torch.as_tensor(x, device=dev)
         for e in registry():
-            times = kernel_times(e["run"], e["prepare"](a, dev), xt)
-            print(json.dumps({"entry": e["name"], "batch": batch,
-                              "kernel_us_per_call": times,
-                              "sum_us": sum(times.values()),
-                              "device": torch.cuda.get_device_name(0)}))
+            _report(e["name"], batch,
+                    kernel_times(e["run"], e["prepare"](a, dev), xt))
+    a = generators.random_sparse_matrix(8192, 8192, density=0.15, seed=0,
+                                        distribution="powerlaw")
+    stats = matrix_stats(a)
+    for batch in (1, 8):
+        fmt = auto_format(a, expect_batch=batch, stats=stats, device=dev)
+        x = generators.random_sparse_batch(batch, 8192, 0.5, seed=0)
+        xt = torch.as_tensor(x[0] if batch == 1 else x, device=dev)
+        _report(f"skew_{type(fmt).__name__}", batch,
+                kernel_times(_fmt_run, fmt, xt))
 
 
 if __name__ == "__main__":

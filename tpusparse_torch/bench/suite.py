@@ -3,7 +3,9 @@
 The headline registry is the reference's one workload, ``Y = X @ A`` in
 fp32 at M = N = 4096 with ~50% sparsity in A and X, through four entries:
 ``dense_torch`` (cuBLAS, the vendor baseline), ``dense_cuda`` (K2),
-``sell_cuda`` (K1) and ``awsp_cuda`` (K3, g = 8, full plan).
+``sell_cuda`` (K1) and ``awsp_cuda`` (K3, g = 8, full plan). The full
+registry adds ``rsell_cuda`` (K4, and K5 for a sorted pack) and
+``asp_cuda`` (K9, full plan), as the JAX package's full registry does.
 """
 
 from __future__ import annotations
@@ -50,14 +52,16 @@ def _dense_tensor(a, device) -> torch.Tensor:
     return torch.as_tensor(a, dtype=torch.float32, device=device)
 
 
-def registry() -> list[dict[str, Any]]:
-    """The headline entries: name, prepare(dense, device) -> fmt,
-    run(fmt, x) -> y."""
+def registry(full: bool = False) -> list[dict[str, Any]]:
+    """The headline entries (``full``: and the other ported formats):
+    name, prepare(dense, device) -> fmt, run(fmt, x) -> y."""
     from tpusparse_torch.formats.awsp import AwspMatrix
+    from tpusparse_torch.formats.rsell import RsellMatrix
     from tpusparse_torch.formats.sell import SellMatrix
+    from tpusparse_torch.kernels.asp_spmv import AspMatrix
     from tpusparse_torch.kernels.dense import dense_cuda, dense_torch
 
-    return [
+    entries = [
         dict(name="dense_torch", prepare=_dense_tensor,
              run=lambda f, x: dense_torch(f, x)),
         dict(name="dense_cuda", prepare=_dense_tensor,
@@ -71,6 +75,16 @@ def registry() -> list[dict[str, Any]]:
              prepare=lambda a, d: AwspMatrix.from_dense(a, g=8, device=d),
              run=_full_plan_run),
     ]
+    if full:
+        entries += [
+            dict(name="rsell_cuda",
+                 prepare=lambda a, d: RsellMatrix.from_dense(a, device=d),
+                 run=_fmt_run),
+            dict(name="asp_cuda",
+                 prepare=lambda a, d: AspMatrix.from_dense(a, device=d),
+                 run=_full_plan_run),
+        ]
+    return entries
 
 
 def sweep(cfg: SpmvConfig | None = None,

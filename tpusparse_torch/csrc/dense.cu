@@ -7,26 +7,18 @@
 // Bound: bytes. A is read once (4*m*n bytes) for 2*B*m*n flops; at B <= 8
 // that is at most 4 flops per byte, far below the card's balance.
 //
-// Design: a 128-thread block owns 128 output columns; lane q of each warp
-// owns 4 adjacent columns and reads them from each row of A with one 16-byte
-// load (when n % 4 == 0 and A is 16-byte aligned; otherwise 4 masked scalar
-// loads), and the 4 warps split the rows. Each warp keeps two groups of
-// kDepth rows in flight: the next group's loads are issued before the
-// current group's FMAs, and the first before the barrier that publishes the
-// x tile (measured on an H100 at B = 8: 40.4 -> 34.9 us, PERF.md; the same
-// change made SELL slower, so it is not in sell_common.cuh). x is staged in
-// shared memory in tiles of kRowTile rows for all batch rows of the block;
-// 4 x B accumulators live in registers and the warps' sums are added once,
-// at the end. With n/128 column blocks (32 at n = 4096) the card would be
-// mostly idle, so the contraction axis m is split across blockIdx.y into
-// slices whose partial sums a second kernel adds in a fixed order
-// (deterministic). Unaligned m and n are masked, never padded.
-#include "sell_common.cuh"
+// Design: a 128-thread block owns 128 output columns and walks the rows in
+// tiles of 128 with the shared row-tile body (dense_common.cuh: lane q of
+// each warp owns 4 adjacent columns, one 16-byte load a row, two groups of
+// rows in flight, the x tile in shared memory); 4 x B accumulators live in
+// registers and the warps' sums are added once, at the end. With n/128
+// column blocks (32 at n = 4096) the card would be mostly idle, so the
+// contraction axis m is split across blockIdx.y into slices whose partial
+// sums a second kernel adds in a fixed order (deterministic). Unaligned m
+// and n are masked, never padded.
+#include "dense_common.cuh"
 
 namespace tps {
-
-constexpr int kRowTile = 128;
-constexpr int kDepth = 4;   // rows per warp in one load group
 
 template <int BT, bool kVec>
 __global__ void __launch_bounds__(kThreads)
@@ -35,7 +27,7 @@ dense_partial_kernel(const float* __restrict__ a, const float* __restrict__ x,
                      int per_slice) {
   __shared__ float xs[BT][kRowTile];
   __shared__ __align__(16) float red[kWarps][BT][kLanes];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const int c0 = blockIdx.x * kLanes + kCols * lane;  // this lane's 4 columns
   const int slice = blockIdx.y, b0 = blockIdx.z * BT;
   float acc[BT][kCols];
@@ -45,51 +37,9 @@ dense_partial_kernel(const float* __restrict__ a, const float* __restrict__ x,
     for (int c = 0; c < kCols; ++c) acc[b][c] = 0.f;
   const int m0 = slice * per_slice;
   const int m1 = min(m, m0 + per_slice);
-  for (int mt = m0; mt < m1; mt += kRowTile) {
-    const int rows = min(kRowTile, m1 - mt);
-    const int mine = rows > warp ? (rows - warp + kWarps - 1) / kWarps : 0;
-    float4 vb[kDepth];  // the group in flight
-    auto load = [&](int g) {
-#pragma unroll
-      for (int u = 0; u < kDepth; ++u) {
-        const int i = g * kDepth + u;
-        if (i < mine && c0 < n) {
-          const float* row = a + (size_t)(mt + warp + i * kWarps) * n + c0;
-          if (kVec) {
-            vb[u] = *reinterpret_cast<const float4*>(row);
-          } else {
-            vb[u] = make_float4(row[0], c0 + 1 < n ? row[1] : 0.f,
-                                c0 + 2 < n ? row[2] : 0.f, c0 + 3 < n ? row[3] : 0.f);
-          }
-        }
-      }
-    };
-    load(0);
-    __syncthreads();  // every thread is done with the previous tile
-    for (int q = threadIdx.x; q < BT * kRowTile; q += kThreads) {
-      const int b = q / kRowTile, u = q % kRowTile;
-      xs[b][u] = (b0 + b < batch && u < rows) ? x[(size_t)(b0 + b) * m + mt + u] : 0.f;
-    }
-    __syncthreads();
-    for (int g = 0; g * kDepth < mine; ++g) {
-      float4 vc[kDepth];
-#pragma unroll
-      for (int u = 0; u < kDepth; ++u) vc[u] = vb[u];
-      if ((g + 1) * kDepth < mine) load(g + 1);
-#pragma unroll
-      for (int u = 0; u < kDepth; ++u) {
-        const int i = g * kDepth + u;
-        if (i < mine && c0 < n) {
-          const int r = warp + i * kWarps;
-          const float v[kCols] = {vc[u].x, vc[u].y, vc[u].z, vc[u].w};
-#pragma unroll
-          for (int b = 0; b < BT; ++b)
-#pragma unroll
-            for (int c = 0; c < kCols; ++c) acc[b][c] = fmaf(v[c], xs[b][r], acc[b][c]);
-        }
-      }
-    }
-  }
+  for (int mt = m0; mt < m1; mt += kRowTile)
+    dense_rows<BT, kVec>(a, n, n, c0, mt, min(kRowTile, m1 - mt), x, m, b0,
+                         batch, xs, acc);
   block_sum_store<BT>(acc, red,
                       part + ((size_t)slice * batch + b0) * n + (size_t)blockIdx.x * kLanes,
                       n, batch - b0, n - blockIdx.x * kLanes);

@@ -1,4 +1,12 @@
 from tpusparse_torch.formats.csr import CsrMatrix  # noqa: F401
 from tpusparse_torch.formats.sell import SellMatrix  # noqa: F401
 from tpusparse_torch.formats.awsp import AwspMatrix  # noqa: F401
+from tpusparse_torch.formats.rsell import RsellMatrix  # noqa: F401
+from tpusparse_torch.kernels.asp_spmv import AspMatrix  # noqa: F401
+from tpusparse_torch.formats.auto import (  # noqa: F401
+    auto_format,
+    matrix_stats,
+    matrix_stats_csr,
+    route,
+)
 from tpusparse_torch.formats.convert import from_reference_arrays  # noqa: F401

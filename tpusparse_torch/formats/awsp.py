@@ -35,7 +35,67 @@ from tpusparse_torch.utils import resolve_device, round_up
 _LANES = 128
 
 
-class AwspMatrix:
+class PlanSkip:
+    """Plan machinery shared by the activation-skipping formats: AWSP skips
+    window groups of ``span = g*128`` rows, ASP single 128-row windows.
+    A subclass gives ``n_units`` (real skippable units), ``span``,
+    ``device``, ``plan(x)`` (the exact host plan) and ``_product(xt, plan,
+    k)`` (the kernel call); plan ``n_units`` is the all-zero unit."""
+
+    n_units: int
+    span: int
+
+    def _full_plan(self) -> torch.Tensor:
+        """Every unit, as a device tensor (uploaded once, then cached)."""
+        if self._full is None:
+            self._full = torch.arange(self.n_units, dtype=torch.int32,
+                                      device=self.device)
+        return self._full
+
+    def _count(self, na: int) -> torch.Tensor:
+        """Device int32 scalar ``na`` for a static plan (uploaded once)."""
+        if na not in self._counts:
+            self._counts[na] = torch.full((1,), na, dtype=torch.int32,
+                                          device=self.device)
+        return self._counts[na]
+
+    def _run(self, x2d, plan: Any = None) -> torch.Tensor:
+        from tpusparse_torch.kernels.awsp_spmv import device_group_plan
+
+        on_card = isinstance(x2d, torch.Tensor) and x2d.device.type == "cuda"
+        if isinstance(plan, str):
+            if plan != "device":
+                raise ValueError(f"plan={plan!r}: expected 'device'")
+        elif plan is None and not on_card:
+            plan = self.plan(x2d)
+        # no padding to the packed rows: the kernel reads them as zero
+        xt = as_input(x2d, self.device).contiguous()
+        if plan is None or isinstance(plan, str):
+            plan_t, k = device_group_plan(xt, self.n_units, self.span)
+        else:
+            if not isinstance(plan, torch.Tensor):
+                p = np.asarray(plan)
+                if p.ndim != 1 or p.size == 0 or p.min() < 0 \
+                        or p.max() > self.n_units:
+                    raise ValueError(f"plan must list ids in "
+                                     f"[0, {self.n_units}], got {p}")
+            plan_t = torch.as_tensor(plan, dtype=torch.int32,
+                                     device=self.device)
+            k = self._count(int(plan_t.numel()))
+        return self._product(xt, plan_t, k)
+
+    def spmv(self, x, plan: Any = None) -> torch.Tensor:
+        """x: (m,) -> (n,). ``plan``: see the module docstring."""
+        if isinstance(x, torch.Tensor):
+            return self._run(x[None, :], plan=plan)[0]
+        return self._run(np.asarray(x)[None, :], plan=plan)[0]
+
+    def spmm(self, x, plan: Any = None) -> torch.Tensor:
+        """x: (b, m) -> (b, n). ``plan``: see the module docstring."""
+        return self._run(x, plan=plan)
+
+
+class AwspMatrix(PlanSkip):
     """AWSP-packed A held as tensors on one device."""
 
     def __init__(self, idx: torch.Tensor, vals: torch.Tensor, shape, padded,
@@ -122,53 +182,17 @@ class AwspMatrix:
             active = np.array([ng])
         return active.astype(np.int32)
 
-    def _full_plan(self) -> torch.Tensor:
-        """Every group, as a device tensor (uploaded once, then cached)."""
-        if self._full is None:
-            self._full = torch.arange(self.n_groups, dtype=torch.int32,
-                                      device=self.device)
-        return self._full
+    @property
+    def n_units(self) -> int:
+        return self.n_groups
 
-    def _count(self, na: int) -> torch.Tensor:
-        """Device int32 scalar ``na`` for a static plan (uploaded once)."""
-        if na not in self._counts:
-            self._counts[na] = torch.full((1,), na, dtype=torch.int32,
-                                          device=self.device)
-        return self._counts[na]
+    @property
+    def span(self) -> int:
+        return self.g * _LANES
 
-    def _run(self, x2d, plan: Any = None) -> torch.Tensor:
-        from tpusparse_torch.kernels.awsp_spmv import (awsp_spmm,
-                                                       device_group_plan)
+    def _product(self, xt: torch.Tensor, plan: torch.Tensor,
+                 k: torch.Tensor) -> torch.Tensor:
+        from tpusparse_torch.kernels.awsp_spmv import awsp_spmm
 
-        on_card = isinstance(x2d, torch.Tensor) and x2d.device.type == "cuda"
-        if isinstance(plan, str):
-            if plan != "device":
-                raise ValueError(f"plan={plan!r}: expected 'device'")
-        elif plan is None and not on_card:
-            plan = self.plan(x2d)
-        # no padding to the packed rows: the kernel reads them as zero
-        xt = as_input(x2d, self.device).contiguous()
-        if plan is None or isinstance(plan, str):
-            plan_t, k = device_group_plan(xt, self.n_groups, self.g * _LANES)
-        else:
-            if not isinstance(plan, torch.Tensor):
-                p = np.asarray(plan)
-                if p.ndim != 1 or p.size == 0 or p.min() < 0 \
-                        or p.max() > self.n_groups:
-                    raise ValueError(f"plan must list group ids in "
-                                     f"[0, {self.n_groups}], got {p}")
-            plan_t = torch.as_tensor(plan, dtype=torch.int32,
-                                     device=self.device)
-            k = self._count(int(plan_t.numel()))
-        return awsp_spmm(plan_t, k, self.idx, self.vals, xt, g=self.g,
+        return awsp_spmm(plan, k, self.idx, self.vals, xt, g=self.g,
                          n=self.shape[1])
-
-    def spmv(self, x, plan: Any = None) -> torch.Tensor:
-        """x: (m,) -> (n,). ``plan``: see the module docstring."""
-        if isinstance(x, torch.Tensor):
-            return self._run(x[None, :], plan=plan)[0]
-        return self._run(np.asarray(x)[None, :], plan=plan)[0]
-
-    def spmm(self, x, plan: Any = None) -> torch.Tensor:
-        """x: (b, m) -> (b, n). ``plan``: see the module docstring."""
-        return self._run(x, plan=plan)

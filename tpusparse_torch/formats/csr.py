@@ -49,6 +49,27 @@ def segment_ranks(key_a: np.ndarray,
     return rank, run_start, run_counts
 
 
+def csr_rows_subset(csr, rows: np.ndarray) -> "CsrMatrix":
+    """CSR whose row k is ``csr`` row ``rows[k]`` (shape (m, len(rows)));
+    entries ``rows[k] >= n`` select empty rows (column padding)."""
+    m, n = csr.shape
+    rp = csr.row_ptr.astype(np.int64)
+    rows = np.asarray(rows, dtype=np.int64)
+    safe = np.minimum(rows, n - 1)
+    valid = rows < n
+    starts = np.where(valid, rp[safe], 0)
+    counts = np.where(valid, rp[safe + 1] - rp[safe], 0)
+    out_ptr = np.zeros(rows.size + 1, dtype=np.int64)
+    np.cumsum(counts, out=out_ptr[1:])
+    total = int(out_ptr[-1])
+    offs = np.arange(total, dtype=np.int64) - np.repeat(out_ptr[:-1], counts)
+    src = np.repeat(starts, counts) + offs
+    return CsrMatrix(shape=(m, int(rows.size)),
+                     row_ptr=out_ptr.astype(np.int32),
+                     col_idx=np.asarray(csr.col_idx)[src],
+                     values=np.asarray(csr.values)[src])
+
+
 def _host_numpy(a) -> np.ndarray:
     """numpy view of a host array or a tensor on any device (copied to the
     host; bf16/fp16 widen to fp32, which numpy can hold)."""

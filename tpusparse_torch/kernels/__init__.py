@@ -1,2 +1,3 @@
 """Hand-written Hopper kernels (``csrc/``) with their plain PyTorch
-versions: K1 ``sell_spmv``, K2 ``dense``, K3 ``awsp_spmv``."""
+versions: K1 ``sell_spmv``, K2 ``dense``, K3 ``awsp_spmv``, K4
+``rsell_spmv``, K5 ``permute`` and K9 ``asp_spmv``."""

@@ -28,7 +28,8 @@ from tpusparse_torch.utils import cdiv
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("sell_spmv.cu", "dense.cu", "awsp_spmv.cu")
+SOURCES = ("sell_spmv.cu", "dense.cu", "awsp_spmv.cu", "rsell_spmv.cu",
+           "permute.cu", "asp_spmv.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
@@ -42,6 +43,14 @@ _SIGNATURES = {
     "tps_awsp_spmm": [_P, _P, _P, _P, _I, _P, _P, _P] + [_I] * 11 + [_P],
     # a, x, part, y, m, n, batch, slices, per_slice, device, stream
     "tps_dense_spmm": [_P, _P, _P, _P] + [_I] * 6 + [_P],
+    # items, gptr, ct, idx, vals, x, part, y, nitems, batch, ldx, n,
+    # device, stream
+    "tps_rsell_spmm": [_P] * 8 + [_I] * 5 + [_P],
+    # y, src, out, batch, ldy, n, device, stream
+    "tps_permute_columns": [_P, _P, _P] + [_I] * 4 + [_P],
+    # plan, count, a, x, part, y, lda, n, batch, ldx, plan_len, slices,
+    # per_slice, device, stream
+    "tps_asp_spmm": [_P] * 6 + [_I] * 8 + [_P],
 }
 
 

@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the six hand-written kernels from ``tpusparse_torch/csrc`` with
+It builds the nine hand-written kernels from ``tpusparse_torch/csrc`` with
 ``nvcc`` (one process per source, first use), then, at the reference
 workload (``Y = X @ A``, fp32, M = N = 4096, ~50% sparsity in A and X,
 seed 0) for B = 1 and B = 8:
@@ -37,7 +37,26 @@ seed 0; X ~50% nonzero):
 7. runs ASP through the device plan on a structured X (a quarter of the
    windows live) under ``torch.cuda.set_sync_debug_mode("error")``, plus an
    all-zero X, and K4 on a flat (run = 1) pack and on an unsorted pack
-   (no unpermute, so no K5 launch).
+   (no unpermute, so no K5 launch);
+
+and then the router's banded and block-structured routes:
+
+8. the block-structured path on blockpruned-4096
+   (``block_pruned_matrix(4096, 4096, block=128, keep_frac=0.3, fill=0.5,
+   seed=9)``, X ~50% nonzero): ``auto_format`` must pick TCSR at B = 1
+   (SELL tier only) and at B = 8 (dense tier only); ``spmv`` at B = 1 must
+   launch K7 and ``spmm`` at B = 8 must launch K6, every launch counter set
+   to 0 just before and read just after;
+9. the banded path on the 1M-unknown 2D 5-point Laplacian
+   (``stencil_csr((1024, 1024))``, as CSR): ``auto_format`` must pick DIA
+   (sym, offsets (0, 1, 1024)); ``spmv`` must launch K8, and ``spmm`` at
+   B = 8 (the shifted torch form, no kernel) must match the oracle, which
+   is computed in float64 from the CSR through scipy, never densified;
+10. holds K6, K7 and K8 at B = 1 and 8 against their plain versions and the
+    oracle, with the same timings and a library call each (cuBLAS for K6,
+    cuSPARSE CSR for K7 and K8; K8 takes one vector, so B = 8 is eight
+    launches), and runs a mixed-tier TCSR pack (the split charge set to 0)
+    and a BSR pack with block_m = 40 against the oracle.
 
 Kernel against plain version: atol 1e-4 (the same products summed in
 another order); against the float64 oracle: atol 1e-3 (the repo's
@@ -56,19 +75,24 @@ import time
 import numpy as np
 import torch
 
-from tpusparse_torch import (AspMatrix, AwspMatrix, RsellMatrix, SellMatrix,
-                             SpmvConfig, auto_format, matrix_stats, spmm,
-                             spmv)
+from tpusparse_torch import (AspMatrix, AwspMatrix, BsrMatrix, DiaMatrix,
+                             RsellMatrix, SellMatrix, SpmvConfig, TcsrMatrix,
+                             auto_format, matrix_stats, matrix_stats_csr,
+                             spmm, spmv)
 from tpusparse_torch.bench.roofline import (ARTIFACT_SHARE, card_info,
                                             detect_hbm_gbps,
                                             roofline_fraction)
 from tpusparse_torch.bench.runner import device_time
 from tpusparse_torch.bench.suite import registry
+from tpusparse_torch.formats import tcsr as tcsr_mod
 from tpusparse_torch.formats.auto import route
 from tpusparse_torch.kernels import _build
 from tpusparse_torch.kernels.asp_spmv import asp_spmm, asp_spmm_plain
 from tpusparse_torch.kernels.awsp_spmv import awsp_spmm, awsp_spmm_plain
+from tpusparse_torch.kernels.bsell_spmv import bsell_spmm, bsell_spmm_plain
+from tpusparse_torch.kernels.bsr_spmv import bsr_spmm, bsr_spmm_plain
 from tpusparse_torch.kernels.dense import dense_cuda, dense_plain, dense_torch
+from tpusparse_torch.kernels.dia_spmv import dia_spmv, dia_spmv_plain
 from tpusparse_torch.kernels.permute import (permute_columns,
                                              permute_columns_plain)
 from tpusparse_torch.kernels.rsell_spmv import rsell_spmm, rsell_spmm_plain
@@ -88,6 +112,15 @@ SKEW_WRAPPERS = {"rsell_spmv": rsell_spmm, "permute": permute_columns,
 # powerlaw row) and the batch at which each kernel runs on its path
 SKEW = dict(m=8192, n=8192, density=0.15, distribution="powerlaw", seed=0)
 SKEW_BATCH = {"rsell_spmv": 1, "permute": 1, "asp_spmv": 8}
+BLOCK_WRAPPERS = {"bsell_spmv": bsell_spmm, "bsr_spmv": bsr_spmm}
+BANDED_WRAPPERS = {"dia_spmv": dia_spmv}
+ALL_WRAPPERS = {**WRAPPERS, **SKEW_WRAPPERS, **BLOCK_WRAPPERS,
+                **BANDED_WRAPPERS}
+# the gallery's blockpruned-4096 (tpusparse/bench/gallery.py) and the 1M-
+# unknown Laplacian (BENCH.md §Solver), and the batch each kernel's path runs
+BLOCKY = dict(m=4096, n=4096, block=128, keep_frac=0.3, fill=0.5, seed=9)
+STENCIL = (1024, 1024)
+PATH_BATCH = {**SKEW_BATCH, "bsell_spmv": 1, "bsr_spmv": 8, "dia_spmv": 1}
 META = {
     "sell_spmv": ("tpusparse_torch/csrc/sell_spmv.cu",
                   "tpusparse/kernels/sell_spmv.py:115"),
@@ -101,6 +134,12 @@ META = {
                 "tpusparse/kernels/permute.py:86"),
     "asp_spmv": ("tpusparse_torch/csrc/asp_spmv.cu",
                  "tpusparse/kernels/asp_spmv.py:69"),
+    "bsr_spmv": ("tpusparse_torch/csrc/bsr_spmv.cu",
+                 "tpusparse/kernels/bsr_spmv.py:144"),
+    "bsell_spmv": ("tpusparse_torch/csrc/bsell_spmv.cu",
+                   "tpusparse/kernels/bsell_spmv.py:140"),
+    "dia_spmv": ("tpusparse_torch/csrc/dia_spmv.cu",
+                 "tpusparse/kernels/dia_spmv.py:184"),
 }
 
 
@@ -246,13 +285,14 @@ def skew_kernel_cases(a, r: RsellMatrix, asp: AspMatrix, dev):
             "asp_spmv": asp_case}
 
 
-def check_kernels(cases, a, xs, dev) -> dict[str, dict]:
-    """Kernel vs plain version vs oracle, and the three timings."""
+def check_kernels(cases, oracle, xs, dev) -> dict[str, dict]:
+    """Kernel vs plain version vs oracle (``oracle(x) -> y`` in float64,
+    cast to fp32), and the three timings."""
     hbm = detect_hbm_gbps() * 1e9
     out = {name: {"by_batch": {}} for name in cases}
     for batch, x in zip(BATCHES, xs):
         xt = torch.from_numpy(x).to(dev)
-        y_ref = reference.sgemm_cpu(x, a)
+        y_ref = oracle(x)
         for name, case in cases.items():
             kern, plain, lib, nbytes, flops, want = case(xt, y_ref)
             yk = kern()
@@ -437,6 +477,204 @@ def check_rsell_bodies(dev) -> None:
                     f"rsell {what}: {permuted} K5 launches")
 
 
+def zero_counts() -> None:
+    for w in ALL_WRAPPERS.values():
+        w.launches = 0
+
+
+def read_counts(names) -> dict[str, int]:
+    return {name: ALL_WRAPPERS[name].launches for name in names}
+
+
+def block_path(a, x1, x8, dev) -> tuple[TcsrMatrix, TcsrMatrix, dict]:
+    """The router's block-structured path through the public API,
+    counted."""
+    m, n = a.shape
+    t0 = time.perf_counter()
+    stats = matrix_stats(a)
+    routes = {b: route(m, n, stats, expect_batch=b) for b in BATCHES}
+    print(f"-- block-structured path: blockpruned-{m}, nnz {stats['nnz']}, "
+          f"empty tiles {stats['empty_block_frac']:.3f}; route B=1 -> "
+          f"{routes[1]!r}, B=8 -> {routes[8]!r}")
+    require(routes == {1: "tcsr", 8: "tcsr"}, f"routes {routes}")
+    f1 = auto_format(a, expect_batch=1, stats=stats)      # device=None: GPU
+    f8 = auto_format(a, expect_batch=8, stats=stats)
+    require(isinstance(f1, TcsrMatrix) and isinstance(f8, TcsrMatrix),
+            f"auto_format gave {type(f1).__name__}, {type(f8).__name__}")
+    for b, f in ((1, f1), (8, f8)):
+        print(f"   B={b}: n_sell {f.n_sell}, n_dense {f.n_dense}, w {f.w}, "
+              f"SELL tiles stored {f.vals.shape[0]}, dense blocks stored "
+              f"{0 if f.bsr is None else f.bsr.blocks.shape[0]}, "
+              f"{f.device_bytes() / 1e6:.2f} MB")
+    require(f1.n_dense == 0 and f1.n_sell > 0 and f8.n_sell == 0
+            and f8.n_dense > 0, "tcsr tiers: expected SELL only at B = 1, "
+            "dense only at B = 8")
+    print(f"   stats + packs + upload {time.perf_counter() - t0:.1f} s")
+    x1t, x8t = torch.from_numpy(x1).to(dev), torch.from_numpy(x8).to(dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    y1 = spmv(f1, x1t)
+    y8 = spmm(f8, x8t)
+    torch.cuda.synchronize()
+    launches = read_counts(BLOCK_WRAPPERS)
+    print("launches on the block-structured path:", json.dumps(launches))
+    for name, k in launches.items():
+        require(k > 0, f"{name}: no launch on the block-structured path")
+    e1 = max_err(y1, reference.sgemv_cpu(x1, a))
+    e8 = max_err(y8, reference.sgemm_cpu(x8, a))
+    print(f"   spmv(tcsr, B=1) |y-oracle|={e1:.3e}, spmm(tcsr, B=8) "
+          f"|y-oracle|={e8:.3e}")
+    require(y1.shape == (n,) and y8.shape == (8, n) and e1 <= ATOL
+            and e8 <= ATOL, "block-structured path disagrees with the oracle")
+    return f1, f8, launches
+
+
+def csr_oracle(csr):
+    """float64 Y = X @ A from the CSR of A.T through scipy (A is never
+    densified), cast to fp32."""
+    at = csr.to_scipy().T.tocsr().astype(np.float64)
+
+    def oracle(x):
+        x = np.asarray(x, np.float64)
+        y = at @ x.T if x.ndim == 2 else at @ x
+        return np.ascontiguousarray(y.T if x.ndim == 2 else y, np.float32)
+    return oracle
+
+
+def torch_csr_of_at(csr, dev):
+    """The CSR of A.T as a torch sparse CSR tensor on the card (cuSPARSE)."""
+    m, n = csr.shape
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(csr.row_ptr.astype(np.int64)),
+        torch.from_numpy(csr.col_idx.astype(np.int64)),
+        torch.from_numpy(np.asarray(csr.values, np.float32)),
+        size=(n, m)).to(dev)
+
+
+def banded_path(csr, x1, x8, dev) -> tuple[DiaMatrix, dict]:
+    """The router's banded path through the public API, counted."""
+    m, n = csr.shape
+    t0 = time.perf_counter()
+    stats = matrix_stats_csr(csr)
+    kind = route(m, n, stats)
+    print(f"-- banded path: {STENCIL[0]}x{STENCIL[1]} 5-point Laplacian, "
+          f"n {n}, nnz {stats['nnz']}, diagonals {stats['n_diags']}, sym "
+          f"{stats['diag_sym']}; route -> {kind!r}")
+    d = auto_format(csr, stats=stats)                     # device=None: GPU
+    require(isinstance(d, DiaMatrix) and d.sym
+            and d.offsets == (0, 1, STENCIL[1]),
+            f"auto_format gave {d!r}")
+    print(f"   {d!r}, stats + pack + upload "
+          f"{time.perf_counter() - t0:.1f} s")
+    oracle = csr_oracle(csr)
+    x1t, x8t = torch.from_numpy(x1).to(dev), torch.from_numpy(x8).to(dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    y1 = spmv(d, x1t)
+    torch.cuda.synchronize()
+    launches = read_counts(BANDED_WRAPPERS)
+    y8 = spmm(d, x8t)                  # the shifted torch form, no kernel
+    torch.cuda.synchronize()
+    print("launches on the banded path:", json.dumps(launches))
+    require(launches["dia_spmv"] > 0, "dia_spmv: no launch on the banded path")
+    e1, e8 = max_err(y1, oracle(x1)), max_err(y8, oracle(x8))
+    print(f"   spmv(dia) |y-oracle|={e1:.3e}, spmm(dia, B=8, shifted form) "
+          f"|y-oracle|={e8:.3e}")
+    require(y1.shape == (n,) and y8.shape == (8, n) and e1 <= ATOL
+            and e8 <= ATOL, "banded path disagrees with the oracle")
+    return d, launches
+
+
+def block_kernel_cases(a, f1: TcsrMatrix, f8: TcsrMatrix, dev):
+    """K7 on the B = 1 pack's SELL tier, K6 on the B = 8 pack's dense
+    tier, each at both batches."""
+    m, n = a.shape
+    nnz = int((a != 0).sum())
+    at_csr = torch.from_numpy(np.ascontiguousarray(a.T)).to(dev) \
+        .to_sparse_csr()
+    a_dev = torch.from_numpy(a).to(dev)
+    b = f8.bsr
+
+    def bsell_case(xt, y_ref):
+        args = (f1.s_bi, f1.s_bj, f1.idx, f1.vals, xt)
+        nbytes = f1.device_bytes() + 4 * (xt.numel() + xt.shape[0] * n)
+        return (lambda: bsell_spmm(*args, n_padded=f1.padded[1], n=n,
+                                   plan=f1._work),
+                lambda: bsell_spmm_plain(*args, n_padded=f1.padded[1], n=n),
+                cusparse(at_csr, xt), nbytes, 2 * nnz * xt.shape[0], y_ref)
+
+    def bsr_case(xt, y_ref):
+        args = (b.bi, b.bj, b.blocks, xt)
+        nbytes = b.device_bytes() + 4 * (xt.numel() + xt.shape[0] * n)
+        return (lambda: bsr_spmm(*args, n_padded=b.padded[1], n=n,
+                                 plan=b._work),
+                lambda: bsr_spmm_plain(*args, n_padded=b.padded[1], n=n),
+                lambda: dense_torch(a_dev, xt), nbytes,
+                2 * nnz * xt.shape[0], y_ref)
+
+    return {"bsell_spmv": bsell_case, "bsr_spmv": bsr_case}
+
+
+def banded_kernel_cases(csr, d: DiaMatrix, dev):
+    """K8 on the Laplacian's DIA pack. The kernel takes one vector, so a
+    batch of B is B launches (and B calls of the plain version)."""
+    n = d.shape[1]
+    at_csr = torch_csr_of_at(csr, dev)
+
+    def rows(fn):
+        return lambda xt: torch.stack([fn(d.offsets, d.vals, v, sym=d.sym,
+                                          n=n) for v in xt])
+
+    def dia_case(xt, y_ref):
+        kern, plain = rows(dia_spmv), rows(dia_spmv_plain)
+        nbytes = d.device_bytes() + 4 * (xt.numel() + xt.shape[0] * n)
+        return (lambda: kern(xt), lambda: plain(xt), cusparse(at_csr, xt),
+                nbytes, 2 * csr.nnz * xt.shape[0], y_ref)
+
+    return {"dia_spmv": dia_case}
+
+
+def check_block_extras(a, x8, dev) -> None:
+    """A mixed-tier TCSR pack (split charge 0) and a BSR pack with
+    block_m = 40, each against its plain version and the oracle."""
+    m, n = 512, 1024
+    rng = np.random.default_rng(7)
+    mixed = np.zeros((m, n), np.float32)
+    for g in range(n // 128):        # two near-full and two sparse tiles
+        for k, fill in ((0, 0.97), (1, 0.97), (2, 0.08), (3, 0.08)):
+            bi = (g + k) % 4
+            mixed[bi * 128:(bi + 1) * 128, g * 128:(g + 1) * 128] = \
+                rng.uniform(0.1, 1, (128, 128)) * \
+                (rng.random((128, 128)) < fill)
+    saved = tcsr_mod._TIER_SPLIT_BYTES
+    tcsr_mod._TIER_SPLIT_BYTES = 0
+    try:
+        f = TcsrMatrix.from_dense(mixed, device=dev)
+    finally:
+        tcsr_mod._TIER_SPLIT_BYTES = saved
+    require(f.n_sell > 0 and f.n_dense > 0, f"mixed pack {f!r}")
+    xm = generators.random_sparse_batch(8, m, 0.5, seed=7)
+    before = (bsell_spmm.launches, bsr_spmm.launches)
+    ym = f.spmm(torch.from_numpy(xm).to(dev))
+    require((bsell_spmm.launches, bsr_spmm.launches) ==
+            (before[0] + 1, before[1] + 1), "mixed pack: not K7 + K6")
+    e_mixed = max_err(ym, reference.sgemm_cpu(xm, mixed))
+    bsr = BsrMatrix.from_dense(a, block_m=40, device=dev)
+    xt = torch.from_numpy(x8).to(dev)
+    args = (bsr.bi, bsr.bj, bsr.blocks, xt)
+    yb = bsr_spmm(*args, n_padded=bsr.padded[1], n=a.shape[1],
+                  plan=bsr._work)
+    e_plain = max_err(yb, bsr_spmm_plain(*args, n_padded=bsr.padded[1],
+                                         n=a.shape[1]))
+    e_bsr = max_err(yb, reference.sgemm_cpu(x8, a))
+    print(f"tcsr mixed ({f.n_sell} SELL + {f.n_dense} dense tiles, w "
+          f"{f.w}) B=8: |y-oracle|={e_mixed:.3e}; bsr block_m=40 "
+          f"({bsr.n_real} blocks) B=8: |k-plain|={e_plain:.3e} "
+          f"|y-oracle|={e_bsr:.3e}")
+    require(e_mixed <= ATOL and e_plain <= PLAIN_ATOL and e_bsr <= ATOL,
+            "mixed TCSR or block_m = 40 BSR disagrees")
+
+
 def kernel_rows(results, launches, batch_of) -> list[dict]:
     rows = []
     for name, res in results.items():
@@ -473,7 +711,9 @@ def main() -> int:
                                         seed=cfg.seed)
     x1 = generators.random_sparse_vector(cfg.m, cfg.x_density, cfg.seed)
     x8 = generators.random_sparse_batch(8, cfg.m, cfg.x_density, cfg.seed)
-    results = check_kernels(kernel_cases(a, dev), a, (x1[None, :], x8), dev)
+    results = check_kernels(kernel_cases(a, dev),
+                            lambda x: reference.sgemm_cpu(x, a),
+                            (x1[None, :], x8), dev)
     check_device_plan(a, x1, dev)
     check_lanes(a, x8, dev)
 
@@ -485,13 +725,36 @@ def main() -> int:
     x8_s = generators.random_sparse_batch(8, SKEW["m"], cfg.x_density,
                                           SKEW["seed"])
     r, asp, skew_launches = skew_path(a_s, x1_s, x8_s, dev)
-    skew_results = check_kernels(skew_kernel_cases(a_s, r, asp, dev), a_s,
+    skew_results = check_kernels(skew_kernel_cases(a_s, r, asp, dev),
+                                 lambda x: reference.sgemm_cpu(x, a_s),
                                  (x1_s[None, :], x8_s), dev)
     check_asp_device_plan(asp, a_s, x8_s, dev)
     check_rsell_bodies(dev)
 
+    a_b = generators.block_pruned_matrix(
+        BLOCKY["m"], BLOCKY["n"], block=BLOCKY["block"],
+        keep_frac=BLOCKY["keep_frac"], fill=BLOCKY["fill"],
+        seed=BLOCKY["seed"])
+    x1_b = generators.random_sparse_vector(BLOCKY["m"], cfg.x_density, 0)
+    x8_b = generators.random_sparse_batch(8, BLOCKY["m"], cfg.x_density, 0)
+    f1, f8, block_launches = block_path(a_b, x1_b, x8_b, dev)
+    csr = generators.stencil_csr(STENCIL)
+    nd = csr.shape[0]
+    x1_d = generators.random_sparse_vector(nd, cfg.x_density, 0)
+    x8_d = generators.random_sparse_batch(8, nd, cfg.x_density, 0)
+    d, banded_launches = banded_path(csr, x1_d, x8_d, dev)
+    block_results = check_kernels(block_kernel_cases(a_b, f1, f8, dev),
+                                  lambda x: reference.sgemm_cpu(x, a_b),
+                                  (x1_b[None, :], x8_b), dev)
+    banded_results = check_kernels(banded_kernel_cases(csr, d, dev),
+                                   csr_oracle(csr), (x1_d[None, :], x8_d),
+                                   dev)
+    check_block_extras(a_b, x8_b, dev)
+
     kernels = kernel_rows(results, launches, {}) + \
-        kernel_rows(skew_results, skew_launches, SKEW_BATCH)
+        kernel_rows(skew_results, skew_launches, PATH_BATCH) + \
+        kernel_rows(block_results, block_launches, PATH_BATCH) + \
+        kernel_rows(banded_results, banded_launches, PATH_BATCH)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card["line"])

@@ -1,6 +1,7 @@
 """Each CUDA kernel of the port against its plain PyTorch version on the
 card, at a small size and at full size: the 4096 x 4096, d = 0.5 workload
-for K1-K3, the 8192 x 8192 powerlaw d = 0.15 workload for K4, K5 and K9.
+for K1-K3, the 8192 x 8192 powerlaw d = 0.15 workload for K4, K5 and K9,
+blockpruned-4096 for K6 and K7, the 1024^2 5-point Laplacian for K8.
 
 Marked ``gpu``: here, with no card, every test skips (decided in a fixture,
 never at import). On the card, whose machine has no JAX, run:
@@ -19,11 +20,16 @@ import numpy as np
 import pytest
 import torch
 
-from tpusparse_torch.formats import (AspMatrix, AwspMatrix, RsellMatrix,
-                                     SellMatrix)
+from tpusparse_torch.formats import (AspMatrix, AwspMatrix, BsrMatrix,
+                                     CsrMatrix, DiaMatrix, RsellMatrix,
+                                     SellMatrix, TcsrMatrix)
+from tpusparse_torch.formats import tcsr as tcsr_mod
 from tpusparse_torch.kernels.asp_spmv import asp_spmm, asp_spmm_plain
 from tpusparse_torch.kernels.awsp_spmv import (awsp_spmm, awsp_spmm_plain,
                                                device_group_plan)
+from tpusparse_torch.kernels.bsell_spmv import bsell_spmm, bsell_spmm_plain
+from tpusparse_torch.kernels.bsr_spmv import bsr_spmm, bsr_spmm_plain
+from tpusparse_torch.kernels.dia_spmv import dia_spmv, dia_spmv_plain, fits
 from tpusparse_torch.kernels.dense import dense_cuda, dense_plain
 from tpusparse_torch.kernels.permute import (permute_columns,
                                              permute_columns_plain)
@@ -248,3 +254,195 @@ def test_public_path_launches_the_kernels(cuda):
     tpusparse_torch.spmm(f, np.stack([xs] * 8))
     after = [w.launches for w in wrappers]
     assert all(u == v + 1 for u, v in zip(after, before))
+
+
+# block-structured matrices: name -> (m, n, kind, seed)
+BLOCKY = {"pruned": (512, 1024, "pruned", 3), "odd": (200, 300, "blocks", 4),
+          "gaps": (256, 512, "gaps", 5), "sparse": (1024, 1024, "sparse", 6),
+          "mixed": (512, 1024, "mixed", 7), "full": (4096, 4096, "pruned", 9)}
+
+
+@functools.cache
+def _blocky(name):
+    m, n, kind, seed = BLOCKY[name]
+    if kind == "pruned":
+        return generators.block_pruned_matrix(m, n, block=128, keep_frac=0.3,
+                                              fill=0.5, seed=seed)
+    if kind == "blocks":
+        return generators.random_sparse_matrix(m, n, density=0.3, seed=seed,
+                                               distribution="blocks",
+                                               block=64)
+    if kind == "gaps":             # output groups 1 and 3 hold no entry
+        a = generators.random_sparse_matrix(m, n, density=0.2, seed=seed)
+        a[:, 128:256] = 0
+        a[:, 384:] = 0
+        return a
+    if kind == "mixed":            # two near-full and two sparse tiles a group
+        rng = np.random.default_rng(seed)
+        a = np.zeros((m, n), np.float32)
+        for g in range(n // 128):
+            for k, fill in ((0, 0.97), (1, 0.97), (2, 0.08), (3, 0.08)):
+                bi = (g + k) % 4
+                tile = rng.uniform(0.1, 1, (128, 128)) * \
+                    (rng.random((128, 128)) < fill)
+                a[bi * 128:(bi + 1) * 128, g * 128:(g + 1) * 128] = tile
+        return a
+    return generators.random_sparse_matrix(m, n, density=0.001, seed=seed)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("name,block_m", [("pruned", 128), ("pruned", 64),
+                                          ("odd", 128), ("odd", 24),
+                                          ("gaps", 128), ("sparse", 8),
+                                          ("full", 128)])
+def test_bsr_kernel(cuda, name, block_m, batch):
+    """K6, zero blocks (empty groups, padding) included."""
+    a = _blocky(name)
+    x = generators.random_sparse_batch(batch, a.shape[0], 0.5, seed=7)
+    f = BsrMatrix.from_dense(a, block_m=block_m, device=cuda)
+    assert f.bi.shape[0] > f.n_real or name not in ("gaps", "sparse")
+    xt = torch.from_numpy(x).to(cuda)
+    args = (f.bi, f.bj, f.blocks, xt)
+    n = f.shape[1]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = bsr_spmm(*args, n_padded=f.padded[1], n=n, plan=f._work)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    _close(y, bsr_spmm_plain(*args, n_padded=f.padded[1], n=n), 1e-4)
+    _close(bsr_spmm(*args, n_padded=f.padded[1], n=n), y, 0.0)  # own plan
+    _close(y, reference.sgemm_cpu(x, a), 1e-3)
+    _close(f.spmm(_padded(x, f.padded[0], cuda)), y, 1e-4)
+
+
+def _tcsr(name, expect_batch, dev, monkeypatch=None):
+    if monkeypatch is not None:                     # mixed tiers
+        monkeypatch.setattr(tcsr_mod, "_TIER_SPLIT_BYTES", 0)
+    return TcsrMatrix.from_dense(_blocky(name), expect_batch=expect_batch,
+                                 device=dev)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("name", ["pruned", "odd", "gaps", "sparse", "full"])
+def test_bsell_kernel(cuda, name, batch):
+    """K7 on TCSR's SELL tier, zero tiles (empty groups, padding)
+    included."""
+    a = _blocky(name)
+    f = _tcsr(name, 1, cuda)
+    assert f.n_sell > 0
+    x = generators.random_sparse_batch(batch, a.shape[0], 0.5, seed=8)
+    xt = torch.from_numpy(x).to(cuda)
+    args = (f.s_bi, f.s_bj, f.idx, f.vals, xt)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = bsell_spmm(*args, n_padded=f.padded[1], plan=f._work)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    _close(y, bsell_spmm_plain(*args, n_padded=f.padded[1]), 1e-4)
+    _close(bsell_spmm(*args, n_padded=f.padded[1]), y, 0.0)      # own plan
+    if f.bsr is None:
+        _close(y[:, :a.shape[1]], reference.sgemm_cpu(x, a), 1e-3)
+    _close(f.spmm(xt), reference.sgemm_cpu(x, a), 1e-3)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8])
+def test_tcsr_both_tiers_and_empty(cuda, monkeypatch, batch):
+    """K7 and K6 in one product (the split charge set to 0, as the CPU test
+    does), and an empty pack, which launches neither."""
+    a = _blocky("mixed")
+    f = _tcsr("mixed", 1, cuda, monkeypatch)
+    assert f.n_sell > 0 and f.n_dense > 0
+    x = generators.random_sparse_batch(batch, a.shape[0], 0.5, seed=9)
+    xt = torch.from_numpy(x).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = f.spmm(xt)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _close(y, reference.sgemm_cpu(x, a), 1e-3)
+    empty = TcsrMatrix.from_dense(np.zeros((256, 384), np.float32),
+                                  device=cuda)
+    assert int(torch.count_nonzero(empty.spmm(xt[:, :256]))) == 0
+
+
+# banded operators (symmetric stencils): name -> (grid, points)
+BANDED = {"stencil2d": ((32, 32), None), "stencil3d_27": ((8, 8, 16), 27),
+          "odd_n": ((37, 29), None), "full": ((1024, 1024), None)}
+
+
+@functools.cache
+def _banded(name):
+    if name == "asym":
+        rng = np.random.default_rng(7)
+        n = 1100
+        ii, jj = np.indices((n, n))
+        a = rng.uniform(-1, 1, (n, n)) * np.isin(ii - jj,
+                                                 (-300, -5, 0, 2, 129))
+        return CsrMatrix.from_dense(a.astype(np.float32))
+    dims, points = BANDED[name]
+    return generators.stencil_csr(dims, points=points)
+
+
+def _oracle(csr, x):
+    """float64 y = x @ A from the CSR of A.T, never densified."""
+    return csr.to_scipy().T.astype(np.float64) @ x.astype(np.float64)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("name", ["stencil2d", "stencil3d_27", "odd_n",
+                                  "asym", "full"])
+def test_dia_kernel(cuda, name, batch):
+    """K8 (one vector a call; ``batch`` vectors in turn), with and without
+    sym, n a multiple of 128 or not."""
+    c = _banded(name)
+    f = DiaMatrix.from_csr(c, device=cuda)
+    n = f.shape[1]
+    assert f.sym == (name != "asym") and fits(f.offsets, f.sym, n)
+    assert name != "odd_n" or n % 128
+    for b in range(batch):
+        x = generators.random_sparse_vector(n, 0.5, seed=10 + b)
+        xt = torch.from_numpy(x).to(cuda)
+        torch.cuda.synchronize()
+        before = dia_spmv.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = f.spmv(xt)                            # K8 where it fits
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        yk = dia_spmv(f.offsets, f.vals, xt, sym=f.sym, n=n)
+        yp = dia_spmv_plain(f.offsets, f.vals, xt, sym=f.sym, n=n)
+        _close(yk, yp, 1e-4)
+        _close(yk, _oracle(c, x), 1e-3)
+        _close(y, _oracle(c, x), 1e-3)
+        assert dia_spmv.launches == before + 2        # spmv and yk
+    xb = generators.random_sparse_batch(batch, n, 0.5, seed=11)
+    yb = f.spmm(torch.from_numpy(xb).to(cuda))        # the shifted form
+    _close(yb, np.stack([_oracle(c, v) for v in xb]), 1e-3)
+
+
+def test_block_and_banded_public_paths_launch_the_kernels(cuda):
+    import tpusparse_torch
+
+    a = _blocky("pruned")
+    x = generators.random_sparse_batch(8, a.shape[0], 0.5, seed=12)
+    wrappers = (bsell_spmm, bsr_spmm, dia_spmv)
+    before = [w.launches for w in wrappers]
+    f1 = tpusparse_torch.auto_format(a, expect_batch=1)
+    f8 = tpusparse_torch.auto_format(a, expect_batch=8)
+    assert isinstance(f1, TcsrMatrix) and isinstance(f8, TcsrMatrix)
+    assert (f1.n_dense, f8.n_sell) == (0, 0)
+    _close(tpusparse_torch.spmv(f1, x[0]), reference.sgemv_cpu(x[0], a), 1e-3)
+    _close(tpusparse_torch.spmm(f8, x), reference.sgemm_cpu(x, a), 1e-3)
+    c = _banded("stencil2d")
+    d = tpusparse_torch.auto_format(c)
+    assert isinstance(d, DiaMatrix) and d.sym and d.offsets == (0, 1, 32)
+    v = generators.random_sparse_vector(1024, 0.5, seed=13)
+    _close(tpusparse_torch.spmv(d, v), _oracle(c, v), 1e-3)
+    after = [w.launches for w in wrappers]
+    assert all(u == w + 1 for u, w in zip(after, before))

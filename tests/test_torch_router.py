@@ -2,8 +2,8 @@
 ``matrix_stats_csr`` give the same dicts, ``route`` the same string for
 every case of the JAX router tests at B = 1, 4 and 8, ``predicted_bytes``
 the same bytes; ``auto_format`` packs the ported kinds into the port's
-classes (whose products meet the oracle on the CPU) and refuses the kinds
-not ported yet rather than substituting another format.
+classes (whose products meet the oracle on the CPU) and refuses the one
+kind not ported yet (binned SELL) rather than substituting another format.
 """
 
 import numpy as np
@@ -21,9 +21,9 @@ from tpusparse.testing import reference
 import tpusparse_torch
 from tpusparse_torch.bench.suite import registry
 from tpusparse_torch.formats import CsrMatrix
-from tpusparse_torch.formats.auto import (matrix_stats, matrix_stats_csr,
-                                          predicted_bytes, route,
-                                          sorted_slot_tile_bytes)
+from tpusparse_torch.formats.auto import (NOT_PORTED, matrix_stats,
+                                          matrix_stats_csr, predicted_bytes,
+                                          route, sorted_slot_tile_bytes)
 
 # the matrices of the JAX package's router tests, plus banded ones (DIA),
 # with the kind each routes to at B = 1 (unstructured X)
@@ -117,6 +117,9 @@ def test_predicted_bytes_match_jax(name):
     ("thin_wide", 1, False, "RsellMatrix"),
     ("batched_mid", 8, False, "AspMatrix"),
     ("near_dense", 1, False, "AspMatrix"),
+    ("banded", 1, False, "DiaMatrix"),
+    ("blocks", 1, False, "TcsrMatrix"),
+    ("blocks", 8, False, "TcsrMatrix"),
 ])
 def test_auto_format_packs_port_classes(name, batch, structured, cls):
     a = _matrix(name)
@@ -135,9 +138,7 @@ def test_auto_format_packs_port_classes(name, batch, structured, cls):
 
 
 def test_auto_format_refuses_kinds_not_ported():
-    for name, item in [("banded", "item 11"), ("blocks", "item 10")]:
-        with pytest.raises(NotImplementedError, match=item):
-            tpusparse_torch.auto_format(_matrix(name), device="cpu")
+    assert set(NOT_PORTED) == {"binned"}
     csr = CsrMatrix.from_coo(65536, 65536, np.arange(200), np.arange(200),
                              np.ones(200, np.float32))
     with pytest.raises(NotImplementedError, match="item 9"):

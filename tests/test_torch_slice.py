@@ -21,6 +21,10 @@ from tpusparse_torch.config import SpmvConfig
 from tpusparse_torch.testing.tester import KernelEntry, SpmvTester
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the modules of the router's banded and block-structured routes, which
+# the import rule must reach as well
+NEW_MODULES = ("formats.bsr", "formats.tcsr", "formats.dia",
+               "kernels.bsr_spmv", "kernels.bsell_spmv", "kernels.dia_spmv")
 JAX_TWIN = {"dense_torch": "dense_xla", "dense_cuda": "dense_pallas",
             "sell_cuda": "sell_pallas", "awsp_cuda": "awsp_pallas"}
 
@@ -94,6 +98,7 @@ def test_device_none_raises_without_a_gpu():
 
 def test_port_imports_no_jax():
     code = (
+        f"NEW = {NEW_MODULES!r}\n"
         "import importlib, pkgutil, sys\n"
         "import chip_smoke, tpusparse_torch\n"
         "for m in pkgutil.walk_packages(tpusparse_torch.__path__,"
@@ -102,6 +107,8 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'tpusparse', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
+        "want = {'tpusparse_torch.' + m for m in NEW}\n"
+        "assert want <= set(sys.modules), want - set(sys.modules)\n"
         "print('clean')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

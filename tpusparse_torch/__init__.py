@@ -1,6 +1,7 @@
 """tpusparse_torch: the PyTorch/CUDA port of tpusparse for NVIDIA Hopper.
 
-``Y = X @ A`` SpMV/SpMM over SELL, AWSP, RSELL and ASP packs, picked by
+``Y = X @ A`` SpMV/SpMM over SELL, AWSP, RSELL, ASP, BSR, TCSR and DIA
+packs, picked by
 ``auto_format`` or by hand, with kernels written by hand for ``sm_90a``
 (``csrc/``), built with ``nvcc`` at first use. Entry
 points run on the GPU unless the caller passes ``device="cpu"``, which runs
@@ -12,9 +13,12 @@ from tpusparse_torch.config import SpmvConfig  # noqa: F401
 from tpusparse_torch.formats import (  # noqa: F401
     AspMatrix,
     AwspMatrix,
+    BsrMatrix,
     CsrMatrix,
+    DiaMatrix,
     RsellMatrix,
     SellMatrix,
+    TcsrMatrix,
     auto_format,
     from_reference_arrays,
     matrix_stats,

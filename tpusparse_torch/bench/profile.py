@@ -2,9 +2,12 @@
 device time goes, kernel by kernel.
 
 For each headline entry at B = 1 and B = 8 (the canonical 4096 x 4096,
-d = 0.5 workload), and for the router's skew path (8192 x 8192 powerlaw,
-d = 0.15: RSELL with its unpermute at B = 1, ASP at B = 8, as
-``auto_format`` picks them), it traces ``REPS`` calls with
+d = 0.5 workload), for the router's skew path (8192 x 8192 powerlaw,
+d = 0.15: RSELL with its unpermute at B = 1, ASP at B = 8), its
+block-structured path (blockpruned-4096: TCSR's SELL tier, K7, at B = 1 and
+its dense tier, K6, at B = 8) and its banded path (the 1024^2 5-point
+Laplacian as DIA: K8 at B = 1, the shifted torch form at B = 8), each as
+``auto_format`` picks them, it traces ``REPS`` calls with
 ``torch.profiler``, each after the same read-only 256 MB L2 flush as
 ``bench.runner``, and prints one JSON line per entry: every CUDA kernel's device time per call (the flush's
 reduction and the memset it issues left out) and their sum. Comparing the sum with ``device_time``'s
@@ -75,6 +78,22 @@ def main() -> None:
         x = generators.random_sparse_batch(batch, 8192, 0.5, seed=0)
         xt = torch.as_tensor(x[0] if batch == 1 else x, device=dev)
         _report(f"skew_{type(fmt).__name__}", batch,
+                kernel_times(_fmt_run, fmt, xt))
+    a = generators.block_pruned_matrix(4096, 4096, block=128, keep_frac=0.3,
+                                       fill=0.5, seed=9)
+    stats = matrix_stats(a)
+    for batch in (1, 8):
+        fmt = auto_format(a, expect_batch=batch, stats=stats, device=dev)
+        x = generators.random_sparse_batch(batch, 4096, 0.5, seed=0)
+        xt = torch.as_tensor(x[0] if batch == 1 else x, device=dev)
+        _report(f"block_{type(fmt).__name__}", batch,
+                kernel_times(_fmt_run, fmt, xt))
+    csr = generators.stencil_csr((1024, 1024))
+    fmt = auto_format(csr, device=dev)
+    for batch in (1, 8):
+        x = generators.random_sparse_batch(batch, csr.shape[0], 0.5, seed=0)
+        xt = torch.as_tensor(x[0] if batch == 1 else x, device=dev)
+        _report(f"banded_{type(fmt).__name__}", batch,
                 kernel_times(_fmt_run, fmt, xt))
 
 

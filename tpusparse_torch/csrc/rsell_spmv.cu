@@ -24,8 +24,9 @@
 // item, and a second kernel adds each group's partials in a fixed order
 // (deterministic; no float atomics), writing y for columns < n; it splits
 // each group's items over 32 slices, because the first group of a sorted
-// skewed pack holds far more items than the tail groups.
+// skewed pack holds far more items than the tail groups (work_items.cuh).
 #include "sell_common.cuh"
+#include "work_items.cuh"
 
 namespace tps {
 
@@ -86,38 +87,6 @@ rsell_partial_kernel(const int* __restrict__ items, const int* __restrict__ ct,
                       kLanes, batch - b0, kLanes);
 }
 
-// y[b, c] = sum of part[i, b, c % 128] over the items i of group c / 128.
-// The first group of a sorted skewed pack holds far more items than the
-// others (one thread per column added them in 8.65 us of a 30.24 us call on
-// the 8192^2 powerlaw pack, H100, PERF.md), so a block of 32 columns x 32
-// item slices splits each group's items: thread (c, r) adds items i0 + r,
-// i0 + r + 32, ... in order, and the 32 slice sums of a column are added in
-// slice order (deterministic).
-constexpr int kRedCols = 32, kRedSlices = 32;
-
-__global__ void __launch_bounds__(kRedCols * kRedSlices)
-rsell_reduce_kernel(const int* __restrict__ gptr, const float* __restrict__ part,
-                    float* __restrict__ y, int batch, int n) {
-  __shared__ float red[kRedSlices][kRedCols + 1];
-  const int c = threadIdx.x, r = threadIdx.y, b = blockIdx.y;
-  const int j = blockIdx.x / (kLanes / kRedCols);
-  const int col = (blockIdx.x % (kLanes / kRedCols)) * kRedCols + c;
-  const int i0 = gptr[j], i1 = gptr[j + 1];
-  const size_t stride = (size_t)batch * kLanes;
-  const float* p = part + (size_t)b * kLanes + col;
-  float s = 0.f;
-#pragma unroll 4
-  for (int i = i0 + r; i < i1; i += kRedSlices) s += p[(size_t)i * stride];
-  red[r][c] = s;
-  __syncthreads();
-  if (r == 0) {
-    float t = 0.f;
-#pragma unroll
-    for (int q = 0; q < kRedSlices; ++q) t += red[q][c];
-    if (j * kLanes + col < n) y[(size_t)b * n + j * kLanes + col] = t;
-  }
-}
-
 }  // namespace tps
 
 // items: (nitems, 3) int32 (group, first chunk, end chunk), sorted by group;
@@ -149,9 +118,7 @@ extern "C" int tps_rsell_spmm(const void* items, const void* gptr, const void* c
       default: tps::rsell_partial_kernel<8><<<grid, tps::kThreads, 0, st>>>(it, tt, ix, vv, xx, pp, batch, ldx); break;
     }
   }
-  const int groups = (n + tps::kLanes - 1) / tps::kLanes;
-  const dim3 rgrid(groups * (tps::kLanes / tps::kRedCols), batch);
-  tps::rsell_reduce_kernel<<<rgrid, dim3(tps::kRedCols, tps::kRedSlices), 0, st>>>(
-      static_cast<const int*>(gptr), pp, static_cast<float*>(y), batch, n);
+  tps::launch_group_reduce(static_cast<const int*>(gptr), pp,
+                           static_cast<float*>(y), batch, n, st);
   return (int)cudaGetLastError();
 }

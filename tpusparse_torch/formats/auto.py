@@ -16,9 +16,11 @@ were measured on a TPU; re-deriving them on the H100 is later work
   TPU kernel's budget (``wide_fits``), else binned SELL (skew) or TCSR;
 - otherwise SELL, or AWSP when the caller expects structured activations.
 
-``auto_format`` packs ``sell``, ``awsp``, ``rsell`` and ``asp`` into the
-port's classes. ``dia``, ``tcsr`` and ``binned`` are not ported yet and
-raise ``NotImplementedError``; the router never substitutes another format.
+``auto_format`` packs ``dia``, ``tcsr``, ``sell``, ``awsp``, ``rsell`` and
+``asp`` into the port's classes (``tcsr`` with the caller's
+``expect_batch``, which moves its tier cutoff). ``binned`` is not ported yet
+and raises ``NotImplementedError``; the router never substitutes another
+format.
 """
 
 from __future__ import annotations
@@ -35,8 +37,7 @@ from tpusparse_torch.utils import resolve_device, round_up
 _LANES = 128
 # formats the router can pick that the port does not have yet, and
 # the ROADMAP.md item that ports each
-NOT_PORTED = {"dia": "item 11 (DIA)", "tcsr": "item 10 (BSR, then TCSR)",
-              "binned": "item 9 (binned SELL)"}
+NOT_PORTED = {"binned": "item 9 (binned SELL)"}
 
 
 def matrix_stats(a) -> dict[str, Any]:
@@ -226,8 +227,10 @@ def auto_format(a, *, expect_structured_x: bool = False,
     ``matrix_stats``/``matrix_stats_csr``. Raises ``NotImplementedError``
     for a format the port does not have yet."""
     from tpusparse_torch.formats.awsp import AwspMatrix
+    from tpusparse_torch.formats.dia import DiaMatrix
     from tpusparse_torch.formats.rsell import RsellMatrix
     from tpusparse_torch.formats.sell import SellMatrix
+    from tpusparse_torch.formats.tcsr import TcsrMatrix
     from tpusparse_torch.kernels.asp_spmv import AspMatrix
 
     resolve_device(device)               # fail before packing, not after
@@ -242,7 +245,11 @@ def auto_format(a, *, expect_structured_x: bool = False,
         raise NotImplementedError(
             f"auto_format routes this matrix to {kind!r}, which tpusparse_"
             f"torch does not have yet (ROADMAP.md, {NOT_PORTED[kind]})")
-    cls = {"sell": SellMatrix, "awsp": AwspMatrix, "rsell": RsellMatrix,
-           "asp": AspMatrix}[kind]
+    if kind == "tcsr":
+        kw = dict(expect_batch=expect_batch, device=device)
+        return TcsrMatrix.from_csr(a, **kw) if is_csr \
+            else TcsrMatrix.from_dense(a, **kw)
+    cls = {"dia": DiaMatrix, "sell": SellMatrix, "awsp": AwspMatrix,
+           "rsell": RsellMatrix, "asp": AspMatrix}[kind]
     return cls.from_csr(a, device=device) if is_csr \
         else cls.from_dense(a, device=device)

@@ -1,16 +1,23 @@
 """Weights across: rebuild a JAX-package pack as the port's object.
 
 ``from_reference_arrays`` takes the plain numpy leaves and metadata of a
-``tpusparse`` ``SellMatrix`` or ``AwspMatrix`` and returns the port's
-counterpart on ``device``. It imports nothing of the JAX package; whoever
-holds the JAX object extracts the dict:
+``tpusparse`` ``SellMatrix``, ``AwspMatrix``, ``BsrMatrix``, ``TcsrMatrix``
+or ``DiaMatrix`` and returns the port's counterpart on ``device``. It
+imports nothing of the JAX package; whoever holds the JAX object extracts
+the dict:
 
     {"kind": "sell" | "awsp", "idx", "vals", "scales", "shape", "padded",
      "w", "nnz", "g"}
+    {"kind": "bsr", "bi", "bj", "blocks", "shape", "padded", "block_m",
+     "nnz", "n_real"}
+    {"kind": "tcsr", "s_bi", "s_bj", "idx", "vals", "w", "bsr", "shape",
+     "padded", "nnz", "n_sell", "n_dense"}
+    {"kind": "dia", "offsets", "vals", "shape", "nnz", "sym"}
 
 ``scales`` is None except for int8 SELL storage; ``g`` is read for AWSP
-only. bf16 values arrive as a ``uint16`` view of their bits (numpy has no
-bf16 of its own).
+only. TCSR's ``bsr`` is the dense tier as a BSR dict (its ``kind`` may be
+left out) or None. bf16 values arrive as a ``uint16`` view of their bits
+(numpy has no bf16 of its own).
 """
 
 from __future__ import annotations
@@ -21,7 +28,10 @@ import numpy as np
 import torch
 
 from tpusparse_torch.formats.awsp import AwspMatrix
+from tpusparse_torch.formats.bsr import BsrMatrix
+from tpusparse_torch.formats.dia import DiaMatrix
 from tpusparse_torch.formats.sell import SellMatrix
+from tpusparse_torch.formats.tcsr import TcsrMatrix
 from tpusparse_torch.utils import resolve_device
 
 
@@ -32,22 +42,77 @@ def _values(v: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(v)
 
 
+# the leaves and metadata each kind's dict must hold
+_KEYS = {
+    "sell": ("idx", "vals", "shape", "padded", "w", "nnz"),
+    "awsp": ("idx", "vals", "shape", "padded", "w", "nnz", "g"),
+    "bsr": ("bi", "bj", "blocks", "shape", "padded", "block_m", "nnz",
+            "n_real"),
+    "tcsr": ("s_bi", "s_bj", "idx", "vals", "w", "bsr", "shape", "padded",
+             "nnz", "n_sell", "n_dense"),
+    "dia": ("offsets", "vals", "shape", "nnz", "sym"),
+}
+
+
+def _check_keys(kind: str, d: dict[str, Any]) -> None:
+    if kind not in _KEYS:
+        raise ValueError(f"unknown pack kind {kind!r}: one of "
+                         f"{', '.join(map(repr, _KEYS))}")
+    missing = [k for k in _KEYS[kind] if k not in d]
+    if missing:
+        raise ValueError(f"{kind!r} pack lacks {missing}")
+
+
+def _ints(v) -> tuple[int, ...]:
+    return tuple(int(s) for s in v)
+
+
+def _tensor(v, dtype) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(v, dtype=dtype))
+
+
+def _bsr(d: dict[str, Any], dev: torch.device) -> BsrMatrix:
+    _check_keys("bsr", d)
+    return BsrMatrix(_tensor(d["bi"], np.int32).to(dev),
+                     _tensor(d["bj"], np.int32).to(dev),
+                     _tensor(d["blocks"], np.float32).to(dev),
+                     _ints(d["shape"]), _ints(d["padded"]),
+                     int(d["block_m"]), int(d["nnz"]), int(d["n_real"]))
+
+
 def from_reference_arrays(d: dict[str, Any], device=None):
-    """JAX-package pack leaves -> ``SellMatrix`` / ``AwspMatrix`` on
-    ``device`` (None is the GPU)."""
+    """JAX-package pack leaves -> ``SellMatrix``, ``AwspMatrix``,
+    ``BsrMatrix``, ``TcsrMatrix`` or ``DiaMatrix`` on ``device`` (None is
+    the GPU)."""
     dev = resolve_device(device)
+    kind = d["kind"]
+    _check_keys(kind, d)
+    if kind == "bsr":
+        return _bsr(d, dev)
+    if kind == "tcsr":
+        bsr = None if d["bsr"] is None else _bsr(d["bsr"], dev)
+        return TcsrMatrix(_tensor(d["s_bi"], np.int32).to(dev),
+                          _tensor(d["s_bj"], np.int32).to(dev),
+                          _tensor(d["idx"], np.int8).to(dev),
+                          _tensor(d["vals"], np.float32).to(dev),
+                          int(d["w"]), bsr, _ints(d["shape"]),
+                          _ints(d["padded"]), int(d["nnz"]),
+                          int(d["n_sell"]), int(d["n_dense"]))
+    if kind == "dia":
+        return DiaMatrix(_ints(d["offsets"]),
+                         _tensor(d["vals"], np.float32).to(dev),
+                         _ints(d["shape"]), int(d["nnz"]),
+                         sym=bool(d["sym"]))
     idx = torch.from_numpy(np.ascontiguousarray(d["idx"], dtype=np.int8))
     vals = _values(d["vals"])
     meta = (tuple(int(s) for s in d["shape"]),
             tuple(int(s) for s in d["padded"]), int(d["w"]))
-    if d["kind"] == "sell":
+    if kind == "sell":
         scales = d.get("scales")
         if scales is not None:
             scales = torch.from_numpy(
                 np.ascontiguousarray(scales, dtype=np.float32)).to(dev)
         return SellMatrix(idx.to(dev), vals.to(dev), *meta, int(d["nnz"]),
                           scales=scales)
-    if d["kind"] == "awsp":
-        return AwspMatrix(idx.to(dev), vals.to(dev), *meta, int(d["g"]),
-                          int(d["nnz"]))
-    raise ValueError(f"unknown pack kind {d['kind']!r}: 'sell' or 'awsp'")
+    return AwspMatrix(idx.to(dev), vals.to(dev), *meta, int(d["g"]),
+                      int(d["nnz"]))

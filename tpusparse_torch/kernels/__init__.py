@@ -1,3 +1,4 @@
 """Hand-written Hopper kernels (``csrc/``) with their plain PyTorch
 versions: K1 ``sell_spmv``, K2 ``dense``, K3 ``awsp_spmv``, K4
-``rsell_spmv``, K5 ``permute`` and K9 ``asp_spmv``."""
+``rsell_spmv``, K5 ``permute``, K6 ``bsr_spmv``, K7 ``bsell_spmv``, K8
+``dia_spmv`` and K9 ``asp_spmv``."""

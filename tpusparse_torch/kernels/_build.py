@@ -29,7 +29,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("sell_spmv.cu", "dense.cu", "awsp_spmv.cu", "rsell_spmv.cu",
-           "permute.cu", "asp_spmv.cu")
+           "permute.cu", "asp_spmv.cu", "bsr_spmv.cu", "bsell_spmv.cu",
+           "dia_spmv.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
@@ -51,6 +52,14 @@ _SIGNATURES = {
     # plan, count, a, x, part, y, lda, n, batch, ldx, plan_len, slices,
     # per_slice, device, stream
     "tps_asp_spmm": [_P] * 6 + [_I] * 8 + [_P],
+    # items, gptr, bi, blocks, x, part, y, nitems, block_m, batch, ldx, n,
+    # device, stream
+    "tps_bsr_spmm": [_P] * 7 + [_I] * 6 + [_P],
+    # items, gptr, bi, idx, vals, x, part, y, nitems, w, batch, ldx, n,
+    # device, stream
+    "tps_bsell_spmm": [_P] * 8 + [_I] * 6 + [_P],
+    # offsets (host int32), vals, x, y, k, sym, n, ldv, device, stream
+    "tps_dia_spmv": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 

@@ -97,6 +97,24 @@ def device_work_plan(cj: np.ndarray, nb: int,
             torch.from_numpy(gptr).to(device))
 
 
+def resolve_plan(name: str, plan, cj: torch.Tensor, nb: int,
+                 dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``device_work_plan`` of ``cj`` for a wrapper: ``plan`` checked
+    against ``nb`` output groups, or built here (from a host copy of cj)
+    when None."""
+    if plan is None:
+        plan = device_work_plan(cj.cpu().numpy(), nb, dev)
+    items, gptr = plan
+    if items.dtype != torch.int32 or gptr.dtype != torch.int32 \
+            or gptr.shape != (nb + 1,):
+        raise ValueError(f"{name}: plan must be int32 (items, gptr) of "
+                         "device_work_plan for this n_padded")
+    _build.require_cuda(name, items, gptr)
+    if items.device != dev:
+        raise ValueError(f"{name}: plan on {items.device}, data on {dev}")
+    return items, gptr
+
+
 def rsell_spmm_plain(cj: torch.Tensor, ct: torch.Tensor, idx: torch.Tensor,
                      vals: torch.Tensor, x: torch.Tensor, *, n_padded: int,
                      n: int | None = None) -> torch.Tensor:
@@ -154,14 +172,7 @@ def rsell_spmm(cj: torch.Tensor, ct: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"rsell_spmm: n={n}, n_padded={n_padded}")
     dev = _build.require_cuda("rsell_spmm", ct, idx, vals, x,
                               aligned=(idx, vals))
-    if plan is None:
-        plan = device_work_plan(cj.cpu().numpy(), nb, dev)
-    items, gptr = plan
-    if items.dtype != torch.int32 or gptr.dtype != torch.int32 \
-            or gptr.shape != (nb + 1,):
-        raise ValueError("rsell_spmm: plan must be int32 (items, gptr) of "
-                         "device_work_plan for this n_padded")
-    _build.require_cuda("rsell_spmm", items, gptr, x)
+    items, gptr = resolve_plan("rsell_spmm", plan, cj, nb, dev)
     batch, nitems = x.shape[0], items.shape[0]
     part = torch.empty((nitems, batch, _LANES), dtype=torch.float32,
                        device=dev)

@@ -1,8 +1,9 @@
 """Public compute surface: ``spmv`` / ``spmm`` dispatch over formats.
 
 ``a`` is a dense array (numpy or tensor) or a compute format
-(``SellMatrix``, ``AwspMatrix``, ``RsellMatrix``, ``AspMatrix``, or
-whichever ``auto_format`` picks); each format carries its kernel. Dense
+(``SellMatrix``, ``AwspMatrix``, ``RsellMatrix``, ``AspMatrix``,
+``BsrMatrix``, ``TcsrMatrix``, ``DiaMatrix``, or whichever ``auto_format``
+picks); each format carries its kernels. Dense
 arrays go to ``dense_torch``. ``CsrMatrix`` is interchange-only and is
 rejected: pack it first.
 """

@@ -8,6 +8,10 @@ callers move it to a device.
 - ``powerlaw``: per-output-column nnz follows a Zipf-like law.
 - ``banded``: nonzeros concentrated in a diagonal band.
 - ``blocks``: block-structured sparsity.
+
+Beside them: ``stencil_csr`` (lattice Laplacians, the banded workload DIA
+serves) and ``block_pruned_matrix`` (block-pruned weights, the workload
+TCSR serves).
 """
 
 from __future__ import annotations
@@ -98,6 +102,76 @@ def random_sparse_csr(m: int, n: int, density: float = 0.5, seed: int = 0,
     np.cumsum(row_ptr, out=row_ptr)
     return CsrMatrix(shape=(m, n), row_ptr=row_ptr,
                      col_idx=mi.astype(np.int32), values=vals)
+
+
+def stencil_csr(dims: tuple[int, ...], points: int | None = None,
+                eps: float = 1.0, eps_axis: int = 0, seed: int = 0,
+                dtype=np.float32) -> "CsrMatrix":
+    """Lattice stencil operator on a row-major grid of shape ``dims``:
+    5-point (2D) / 7-point (3D) when ``points`` is None, or the full
+    (2*halo+1)^ndim box with ``points`` in {9, 27}. ``eps`` scales the
+    couplings along ``eps_axis`` (anisotropic diffusion). SPD by
+    construction: diag = sum of |off-diag| couplings + 1e-3. O(nnz) build,
+    never densified. ``seed`` is unused (the operator is deterministic)."""
+    from itertools import product
+
+    from tpusparse_torch.formats.csr import CsrMatrix
+
+    nd = len(dims)
+    n = int(np.prod(dims))
+    if points is None or points == {2: 5, 3: 7}.get(nd):
+        offsets = []
+        for ax in range(nd):
+            e = np.zeros(nd, dtype=np.int64)
+            e[ax] = 1
+            offsets += [tuple(e), tuple(-e)]
+    elif (nd, points) in ((2, 9), (3, 27)):
+        offsets = [o for o in product((-1, 0, 1), repeat=nd) if any(o)]
+    else:
+        raise ValueError(f"unsupported stencil: dims={dims} points={points}")
+
+    idx = np.arange(n, dtype=np.int64).reshape(dims)
+    rows_l, cols_l, vals_l = [], [], []
+    diag = np.full(n, 1e-3, dtype=np.float64)
+    for off in offsets:
+        # coupling strength: eps for each step along eps_axis, else 1
+        w = float(np.prod([eps if (ax == eps_axis and o != 0) else 1.0
+                           for ax, o in enumerate(off)]))
+        src = [slice(max(0, -o), dims[ax] - max(0, o))
+               for ax, o in enumerate(off)]
+        dst = [slice(max(0, o), dims[ax] - max(0, -o))
+               for ax, o in enumerate(off)]
+        r = idx[tuple(src)].ravel()
+        ci = idx[tuple(dst)].ravel()
+        rows_l.append(r)
+        cols_l.append(ci)
+        vals_l.append(np.full(r.size, -w, dtype=np.float64))
+        np.add.at(diag, r, w)
+    rows_l.append(np.arange(n, dtype=np.int64))
+    cols_l.append(np.arange(n, dtype=np.int64))
+    vals_l.append(diag)
+    return CsrMatrix.from_coo(
+        n, n, np.concatenate(rows_l), np.concatenate(cols_l),
+        np.concatenate(vals_l).astype(dtype))
+
+
+def block_pruned_matrix(m: int, n: int, block: int = 128,
+                        keep_frac: float = 0.3, fill: float = 0.5,
+                        seed: int = 0, dtype=np.float32) -> np.ndarray:
+    """Block-pruned weights: ``keep_frac`` of (block x block) tiles survive,
+    each with i.i.d. ``fill`` interior density (structured pruning, and
+    expert-block weights)."""
+    rng = _rng(seed ^ 0xB10C)
+    bm, bn = -(-m // block), -(-n // block)
+    blocks = rng.random((bm, bn)) < keep_frac
+    if not blocks.any():
+        blocks.flat[int(rng.integers(bm * bn))] = True
+    mask = np.kron(blocks, np.ones((block, block), dtype=bool))[:m, :n]
+    mask &= rng.random((m, n)) < fill
+    vals = rng.uniform(-1.0, 1.0, size=(m, n))
+    a = vals * mask
+    a = np.where(mask & (a == 0.0), 1e-3, a)
+    return a.astype(dtype)
 
 
 def _powerlaw_mask(rng, m, n, density, alpha):

@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the nine hand-written kernels from ``tpusparse_torch/csrc`` with
+It builds the ten hand-written kernels from ``tpusparse_torch/csrc`` with
 ``nvcc`` (one process per source, first use), then, at the reference
 workload (``Y = X @ A``, fp32, M = N = 4096, ~50% sparsity in A and X,
 seed 0) for B = 1 and B = 8:
@@ -56,7 +56,28 @@ and then the router's banded and block-structured routes:
     oracle, with the same timings and a library call each (cuBLAS for K6,
     cuSPARSE CSR for K7 and K8; K8 takes one vector, so B = 8 is eight
     launches), and runs a mixed-tier TCSR pack (the split charge set to 0)
-    and a BSR pack with block_m = 40 against the oracle.
+    and a BSR pack with block_m = 40 against the oracle;
+
+and then the training path, on the headline matrix as a trainable weight
+(BENCH.md §Training: 4096 x 4096, d = 0.5, fp32):
+
+11. ``trainable_linear`` (one twin pack, its host time printed): a
+    backward at B = 1 and B = 8 with x requiring grad launches K1 twice and
+    K10 twice (every launch counter set to 0 just before and read just
+    after); dx matches the float64 oracle g @ A.T, ``dvals`` and
+    ``dvals_t`` scattered back to dense through the signed planes match
+    mask(A) * (x.T @ g) in float64 (atol 1e-3), pad slots are exactly 0.
+    Then example 08's MLP at this width: ``SparseLinear.from_csr(csr,
+    use_bias=True, activation=torch.relu)`` (4096 -> 4096) and
+    ``nn.Linear(4096, 64)``, 5 ``torch.optim.SGD`` steps on a B = 8 ~50%-
+    sparse X toward a fixed target: the loss falls, each step launches K1
+    once and K10 twice (X is data), the backward runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, and ``resync`` leaves
+    ``vals_t`` equal to the re-tied copy;
+12. holds K10 at B = 1 and 8 against its plain version and the oracle,
+    times it, its plain version and ``torch.sparse.sampled_addmm``
+    (cuSPARSE SDDMM on A's CSR, the yardstick), and times the forward and
+    the fwd+bwd step beside their bytes bounds.
 
 Kernel against plain version: atol 1e-4 (the same products summed in
 another order); against the float64 oracle: atol 1e-3 (the repo's
@@ -75,10 +96,11 @@ import time
 import numpy as np
 import torch
 
-from tpusparse_torch import (AspMatrix, AwspMatrix, BsrMatrix, DiaMatrix,
-                             RsellMatrix, SellMatrix, SpmvConfig, TcsrMatrix,
-                             auto_format, matrix_stats, matrix_stats_csr,
-                             spmm, spmv)
+from tpusparse_torch import (AspMatrix, AwspMatrix, BsrMatrix, CsrMatrix,
+                             DiaMatrix, RsellMatrix, SellMatrix, SpmvConfig,
+                             TcsrMatrix, auto_format, matrix_stats,
+                             matrix_stats_csr, spmm, spmv, trainable_linear)
+from tpusparse_torch.autodiff import retied
 from tpusparse_torch.bench.roofline import (ARTIFACT_SHARE, card_info,
                                             detect_hbm_gbps,
                                             roofline_fraction)
@@ -96,7 +118,9 @@ from tpusparse_torch.kernels.dia_spmv import dia_spmv, dia_spmv_plain
 from tpusparse_torch.kernels.permute import (permute_columns,
                                              permute_columns_plain)
 from tpusparse_torch.kernels.rsell_spmv import rsell_spmm, rsell_spmm_plain
+from tpusparse_torch.kernels.sell_grad import sell_dvals, sell_dvals_plain
 from tpusparse_torch.kernels.sell_spmv import sell_spmm, sell_spmm_plain
+from tpusparse_torch.nn import SparseLinear
 from tpusparse_torch.testing import generators, reference
 from tpusparse_torch.testing.tester import KernelEntry, SpmvTester
 
@@ -114,13 +138,19 @@ SKEW = dict(m=8192, n=8192, density=0.15, distribution="powerlaw", seed=0)
 SKEW_BATCH = {"rsell_spmv": 1, "permute": 1, "asp_spmv": 8}
 BLOCK_WRAPPERS = {"bsell_spmv": bsell_spmm, "bsr_spmv": bsr_spmm}
 BANDED_WRAPPERS = {"dia_spmv": dia_spmv}
+TRAIN_WRAPPERS = {"sell_spmv": sell_spmm, "sell_grad": sell_dvals}
 ALL_WRAPPERS = {**WRAPPERS, **SKEW_WRAPPERS, **BLOCK_WRAPPERS,
-                **BANDED_WRAPPERS}
+                **BANDED_WRAPPERS, **TRAIN_WRAPPERS}
 # the gallery's blockpruned-4096 (tpusparse/bench/gallery.py) and the 1M-
 # unknown Laplacian (BENCH.md §Solver), and the batch each kernel's path runs
 BLOCKY = dict(m=4096, n=4096, block=128, keep_frac=0.3, fill=0.5, seed=9)
 STENCIL = (1024, 1024)
-PATH_BATCH = {**SKEW_BATCH, "bsell_spmv": 1, "bsr_spmv": 8, "dia_spmv": 1}
+PATH_BATCH = {**SKEW_BATCH, "bsell_spmv": 1, "bsr_spmv": 8, "dia_spmv": 1,
+              "sell_grad": 8}
+# the training run: example 08's head width, its steps and learning rate;
+# X is scaled so that the hidden pre-activations have about unit variance
+# (4096 * 0.5 (A's density) * E[x^2] = 1/6 * E[a^2] = 1/3, about 114)
+HEAD, STEPS, LR, X_SCALE = 64, 5, 0.02, 114.0 ** -0.5
 META = {
     "sell_spmv": ("tpusparse_torch/csrc/sell_spmv.cu",
                   "tpusparse/kernels/sell_spmv.py:115"),
@@ -140,6 +170,8 @@ META = {
                    "tpusparse/kernels/bsell_spmv.py:140"),
     "dia_spmv": ("tpusparse_torch/csrc/dia_spmv.cu",
                  "tpusparse/kernels/dia_spmv.py:184"),
+    "sell_grad": ("tpusparse_torch/csrc/sell_grad.cu",
+                  "tpusparse/kernels/sell_grad.py:92"),
 }
 
 
@@ -675,6 +707,197 @@ def check_block_extras(a, x8, dev) -> None:
             "mixed TCSR or block_m = 40 BSR disagrees")
 
 
+def slots_to_dense(s, v, m, n):
+    """float64 dense (m, n) from values ``v`` in the layout of the signed
+    plane ``s``: slot (j, t, _, r) holds entry (t*128 + s, j*128 + r)."""
+    live = s >= 0
+    j, t, _, r = torch.nonzero(live, as_tuple=True)
+    d = torch.zeros((s.shape[1] * 128, s.shape[0] * 128), dtype=torch.float64,
+                    device=s.device)
+    d[t * 128 + s[live].long(), j * 128 + r] = v[live].double()
+    return d[:m, :n]
+
+
+def training_path(csr, a, dev):
+    """Phase 11, first half: trainable_linear's backward at B = 1 and 8,
+    counted. Returns (apply, params, K10 launches)."""
+    m, n = csr.shape
+    t0 = time.perf_counter()
+    apply, params, masks, _ = trainable_linear(csr)        # device=None: GPU
+    torch.cuda.synchronize()
+    st = apply.statics
+    print(f"-- training path: trainable_linear({m}x{n}, nnz {csr.nnz}): "
+          f"twin pack + upload {time.perf_counter() - t0:.1f} s; W "
+          f"{st['s_f'].shape[2]} / {st['s_t'].shape[2]}, vals + vals_t "
+          f"{2 * params['vals'].numel() * 4 / 1e6:.1f} MB")
+    a64 = torch.from_numpy(a).to(dev).double()
+    k10 = 0
+    for batch in BATCHES:
+        x = generators.random_sparse_batch(batch, m, 0.5, seed=batch)
+        g = np.random.default_rng(batch).uniform(-1, 1, (batch, n)) \
+            .astype(np.float32)
+        if batch == 1:                             # a vector: spmv
+            x, g = x[0], g[0]
+        xt = torch.from_numpy(x).to(dev).requires_grad_()
+        gt = torch.from_numpy(g).to(dev)
+        for p in params.values():
+            p.grad = None
+        torch.cuda.synchronize()
+        zero_counts()
+        apply(params, xt).backward(gt)
+        torch.cuda.synchronize()
+        counts = read_counts(TRAIN_WRAPPERS)
+        print(f"   B={batch} backward launches: {json.dumps(counts)}")
+        require(counts == {"sell_spmv": 2, "sell_grad": 2},
+                f"B={batch}: K1 x2 and K10 x2 expected, got {counts}")
+        k10 += counts["sell_grad"]
+        x64 = xt.detach().double().reshape(-1, m)
+        g64 = gt.double().reshape(-1, n)
+        e_dx = max_err(xt.grad, (g64 @ a64.T).reshape(xt.shape))
+        da = (x64.T @ g64) * (a64 != 0)                # mask(A) * (x.T g)
+        e_v = float((slots_to_dense(st["s_f"], params["vals"].grad, m, n)
+                     - da).abs().max())
+        e_vt = float((slots_to_dense(st["s_t"], params["vals_t"].grad, n, m)
+                      - da.T).abs().max())
+        pads = sum(int(params[k].grad[~masks[k]].count_nonzero())
+                   for k in params)
+        print(f"   B={batch}: |dx-oracle|={e_dx:.3e} |dvals-oracle|="
+              f"{e_v:.3e} |dvals_t-oracle|={e_vt:.3e}, nonzero pad "
+              f"gradients {pads}")
+        require(max(e_dx, e_v, e_vt) <= ATOL and pads == 0,
+                f"B={batch}: gradients disagree with the oracle")
+    return apply, params, k10
+
+
+def training_run(csr, dev) -> int:
+    """Phase 11, second half: example 08's MLP at full width, 5 SGD steps,
+    counted. Returns K10 launches."""
+    m, n = csr.shape
+    torch.manual_seed(0)
+    t0 = time.perf_counter()
+    hidden = SparseLinear.from_csr(csr, use_bias=True,
+                                   activation=torch.relu)   # on the GPU
+    model = torch.nn.Sequential(hidden, torch.nn.Linear(n, HEAD).to(dev))
+    print(f"   MLP {m} -> {n} (SparseLinear, bias, relu) -> {HEAD}: built "
+          f"in {time.perf_counter() - t0:.1f} s")
+    x = torch.from_numpy(generators.random_sparse_batch(
+        8, m, 0.5, seed=11) * X_SCALE).to(dev)
+    target = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (8, HEAD)).astype(np.float32) * 0.5).to(dev)
+    opt = torch.optim.SGD(model.parameters(), lr=LR)
+    start = {k: v.detach().clone() for k, v in hidden.named_parameters()}
+    losses, k10 = [], 0
+    for _ in range(STEPS):
+        opt.zero_grad()
+        torch.cuda.synchronize()
+        zero_counts()
+        loss = ((model(x) - target) ** 2).mean()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss.backward()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        counts = read_counts(TRAIN_WRAPPERS)
+        require(counts == {"sell_spmv": 1, "sell_grad": 2},
+                f"training step: K1 x1 and K10 x2 expected, got {counts}")
+        k10 += counts["sell_grad"]
+        opt.step()
+        losses.append(float(loss.detach()))
+    print(f"   losses {[f'{v:.6f}' for v in losses]}; each step K1 x1, "
+          f"K10 x2; backward under sync debug 'error'")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"the loss did not fall: {losses}")
+    moved = all(not torch.equal(v.detach(), start[k])
+                for k, v in hidden.named_parameters())
+    pads = sum(int(getattr(hidden, k).detach()[~hidden.masks[k]]
+                   .count_nonzero()) for k in ("vals", "vals_t"))
+    tied = retied(hidden.vals, hidden.t_gather, hidden.t_live)
+    drift = float((hidden.vals_t.detach() - tied).abs().max())
+    hidden.resync()
+    print(f"   vals, vals_t and bias moved: {moved}; nonzero pads {pads}; "
+          f"twin drift before resync {drift:.3e}")
+    require(moved and pads == 0 and torch.equal(hidden.vals_t.detach(), tied),
+            "training run: a copy did not move, a pad moved, or resync did "
+            "not re-tie vals_t")
+    return k10
+
+
+def grad_kernel_cases(a, statics, dev):
+    """K10 on the forward plane with this x and a fixed g per batch; the
+    oracle is the float64 slot formula (``grad_oracle``)."""
+    n = a.shape[1]
+    s_f = statics["s_f"]
+    nnz = int((a != 0).sum())
+    a_csr = torch.from_numpy(a).to(dev).to_sparse_csr()   # A itself, (m, n)
+    gs = {b: torch.from_numpy(np.random.default_rng(20 + b).uniform(
+        -1, 1, (b, n)).astype(np.float32)).to(dev) for b in BATCHES}
+
+    def grad_case(xt, want):
+        g = gs[xt.shape[0]]
+        x_t = xt.T.contiguous()
+        nbytes = s_f.numel() * 5 + 4 * (xt.numel() + g.numel())
+        return (lambda: sell_dvals(s_f, xt, g),
+                lambda: sell_dvals_plain(s_f, xt, g),
+                lambda: torch.sparse.sampled_addmm(a_csr, x_t, g, beta=0.0),
+                nbytes, 2 * nnz * xt.shape[0], want)
+
+    def oracle(x):
+        g64 = gs[x.shape[0]].double()
+        x64 = torch.from_numpy(x).to(dev).double()
+        live = s_f >= 0
+        j, t, _, r = torch.nonzero(live, as_tuple=True)
+        rows, cols = t * 128 + s_f[live].long(), j * 128 + r
+        acc = torch.zeros(rows.numel(), dtype=torch.float64, device=dev)
+        for b in range(x64.shape[0]):
+            acc += x64[b][rows] * g64[b][cols]
+        want = torch.zeros(s_f.shape, dtype=torch.float64, device=dev)
+        want[live] = acc
+        return want
+
+    return {"sell_grad": grad_case}, oracle
+
+
+def step_times(apply, params, m, n, dev) -> dict:
+    """Forward and fwd+bwd (dx and both value gradients) per call at B = 1
+    and 8, CUDA events after the read flush, beside their bytes bounds."""
+    st = apply.statics
+    hbm = detect_hbm_gbps() * 1e9
+    slots_f, slots_t = st["s_f"].numel(), st["s_t"].numel()
+    vals, vals_t = params["vals"], params["vals_t"]
+    out = {}
+    for batch in BATCHES:
+        x = torch.from_numpy(generators.random_sparse_batch(
+            batch, m, 0.5, seed=30 + batch)).to(dev)
+        g = torch.from_numpy(np.random.default_rng(31).uniform(
+            -1, 1, (batch, n)).astype(np.float32)).to(dev)
+        xr = x.clone().requires_grad_()
+
+        def fwd():
+            with torch.no_grad():
+                return apply(params, x)
+
+        def step():
+            return torch.autograd.grad(apply(params, xr), [vals, vals_t, xr],
+                                       g)
+
+        xy = 4 * batch * (m + n)                     # x and y, or g and dx
+        fwd_bytes = slots_f * 5 + xy
+        step_bytes = fwd_bytes + slots_t * 5 + xy + (slots_f + slots_t) * 5 \
+            + 2 * xy
+        row = {"fwd_ms": device_time(fwd, name="fwd").seconds * 1e3,
+               "step_ms": device_time(step, name="step").seconds * 1e3,
+               "fwd_bound_ms": fwd_bytes / hbm * 1e3,
+               "step_bound_ms": step_bytes / hbm * 1e3}
+        out[str(batch)] = row
+        print(f"training step B={batch}: forward {row['fwd_ms'] * 1e3:.2f} "
+              f"us (bound {row['fwd_bound_ms'] * 1e3:.2f}), fwd+bwd "
+              f"{row['step_ms'] * 1e3:.2f} us (bound "
+              f"{row['step_bound_ms'] * 1e3:.2f}, "
+              f"{step_bytes / 1e6:.1f} MB)")
+    return out
+
+
 def kernel_rows(results, launches, batch_of) -> list[dict]:
     rows = []
     for name, res in results.items():
@@ -751,10 +974,19 @@ def main() -> int:
                                    dev)
     check_block_extras(a_b, x8_b, dev)
 
+    csr_a = CsrMatrix.from_dense(a)
+    apply, params, k10 = training_path(csr_a, a, dev)
+    k10 += training_run(csr_a, dev)
+    cases, grad_oracle = grad_kernel_cases(a, apply.statics, dev)
+    grad_results = check_kernels(cases, grad_oracle, (x1[None, :], x8), dev)
+    steps = step_times(apply, params, cfg.m, cfg.n, dev)
+    print(json.dumps({"training_step": steps}))
+
     kernels = kernel_rows(results, launches, {}) + \
         kernel_rows(skew_results, skew_launches, PATH_BATCH) + \
         kernel_rows(block_results, block_launches, PATH_BATCH) + \
-        kernel_rows(banded_results, banded_launches, PATH_BATCH)
+        kernel_rows(banded_results, banded_launches, PATH_BATCH) + \
+        kernel_rows(grad_results, {"sell_grad": k10}, PATH_BATCH)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card["line"])

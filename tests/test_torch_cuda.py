@@ -1,7 +1,8 @@
 """Each CUDA kernel of the port against its plain PyTorch version on the
 card, at a small size and at full size: the 4096 x 4096, d = 0.5 workload
-for K1-K3, the 8192 x 8192 powerlaw d = 0.15 workload for K4, K5 and K9,
-blockpruned-4096 for K6 and K7, the 1024^2 5-point Laplacian for K8.
+for K1-K3 and K10, the 8192 x 8192 powerlaw d = 0.15 workload for K4, K5
+and K9, blockpruned-4096 for K6 and K7, the 1024^2 5-point Laplacian for
+K8; and the training path's launches and its backward without a host sync.
 
 Marked ``gpu``: here, with no card, every test skips (decided in a fixture,
 never at import). On the card, whose machine has no JAX, run:
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpusparse_torch.autodiff import _TwinPack, trainable_linear
 from tpusparse_torch.formats import (AspMatrix, AwspMatrix, BsrMatrix,
                                      CsrMatrix, DiaMatrix, RsellMatrix,
                                      SellMatrix, TcsrMatrix)
@@ -34,7 +36,9 @@ from tpusparse_torch.kernels.dense import dense_cuda, dense_plain
 from tpusparse_torch.kernels.permute import (permute_columns,
                                              permute_columns_plain)
 from tpusparse_torch.kernels.rsell_spmv import rsell_spmm, rsell_spmm_plain
+from tpusparse_torch.kernels.sell_grad import sell_dvals, sell_dvals_plain
 from tpusparse_torch.kernels.sell_spmv import sell_spmm, sell_spmm_plain
+from tpusparse_torch.nn import SparseLinear
 from tpusparse_torch.testing import generators, reference
 
 pytestmark = pytest.mark.gpu
@@ -446,3 +450,108 @@ def test_block_and_banded_public_paths_launch_the_kernels(cuda):
     _close(tpusparse_torch.spmv(d, v), _oracle(c, v), 1e-3)
     after = [w.launches for w in wrappers]
     assert all(u == w + 1 for u, w in zip(after, before))
+
+
+@functools.cache
+def _twin(size):
+    m, n = SIZES[size]
+    a = generators.random_sparse_matrix(m, n, density=0.5, seed=0)
+    return a, _TwinPack(CsrMatrix.from_dense(a))
+
+
+def _dvals_oracle(s, u, v):
+    """float64 sum_b u[b, row(slot)] * v[b, col(slot)] on the live slots."""
+    live = s >= 0
+    j, t, _, r = torch.nonzero(live, as_tuple=True)
+    rows, cols = t * 128 + s[live].long(), j * 128 + r
+    acc = torch.zeros(rows.numel(), dtype=torch.float64, device=s.device)
+    for b in range(u.shape[0]):
+        acc += u[b].double()[rows] * v[b].double()[cols]
+    return live, acc
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 12])
+@pytest.mark.parametrize("size", list(SIZES))
+def test_sell_grad_kernel(cuda, size, batch):
+    """K10 in both roles of the backward (forward plane with (x, g),
+    transpose plane with (g, x)); B = 12 takes the generic body."""
+    a, pack = _twin(size)
+    m, n = a.shape
+    x = torch.from_numpy(generators.random_sparse_batch(batch, m, 0.5,
+                                                        seed=batch)).to(cuda)
+    g = torch.from_numpy(np.random.default_rng(batch).uniform(
+        -1, 1, (batch, n)).astype(np.float32)).to(cuda)
+    for plane, u, v in ((pack.s_f, x, g), (pack.s_t, g, x)):
+        s = torch.from_numpy(plane).to(cuda)
+        before = sell_dvals.launches
+        d = sell_dvals(s, u, v)
+        torch.cuda.synchronize()
+        assert sell_dvals.launches == before + 1
+        _close(d, sell_dvals_plain(s, u, v), 1e-4)
+        assert not d[s < 0].any()                 # pads exactly 0
+        live, want = _dvals_oracle(s, u, v)
+        _close(d[live], want, 1e-3)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_trainable_path_launches_and_grads(cuda, batch):
+    """K1 x2 and K10 x2 for a backward that asks for dx; K1 x1 and K10 x2
+    when x is data; the gradients agree with the CPU's plain versions."""
+    a, _ = _twin("unaligned")
+    c = CsrMatrix.from_dense(a)
+    x = generators.random_sparse_batch(batch, a.shape[0], 0.5, seed=5)
+    x = x[0] if batch == 1 else x
+    g = np.random.default_rng(6).uniform(-1, 1, x.shape[:-1] + (
+        a.shape[1],)).astype(np.float32)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        apply, params, _, _ = trainable_linear(c, device=dev)
+        xt = torch.from_numpy(x).to(dev).requires_grad_()
+        torch.cuda.synchronize()
+        k1, k10 = sell_spmm.launches, sell_dvals.launches
+        apply(params, xt).backward(torch.from_numpy(g).to(dev))
+        torch.cuda.synchronize()
+        if dev.type == "cuda":
+            assert (sell_spmm.launches - k1, sell_dvals.launches - k10) == \
+                (2, 2)
+            k1, k10 = sell_spmm.launches, sell_dvals.launches
+            apply(params, x).backward(torch.from_numpy(g).to(dev))
+            assert (sell_spmm.launches - k1, sell_dvals.launches - k10) == \
+                (1, 2)
+        grads[dev.type] = (xt.grad, params["vals"].grad, params["vals_t"].grad)
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert got is not None and want is not None
+    _close(grads["cuda"][0], grads["cpu"][0], 1e-4)
+    # the second CUDA backward accumulated a second copy of the values' grads
+    for k in (1, 2):
+        _close(grads["cuda"][k], 2 * grads["cpu"][k], 1e-4)
+
+
+def test_training_step_has_no_host_sync(cuda):
+    """SparseLinear + a dense head: forward, backward, SGD step and resync,
+    with host syncs made errors; the loss falls."""
+    torch.manual_seed(0)
+    a, _ = _twin("small")
+    m, n = a.shape
+    hidden = SparseLinear.from_dense(a, use_bias=True, activation=torch.relu)
+    model = torch.nn.Sequential(hidden, torch.nn.Linear(n, 16).to(cuda))
+    opt = torch.optim.SGD(model.parameters(), lr=0.01)
+    x = torch.from_numpy(generators.random_sparse_batch(
+        8, m, 0.5, seed=7)).to(cuda) * 0.1
+    target = torch.zeros((8, 16), device=cuda)
+    losses = []
+    for _ in range(3):
+        opt.zero_grad()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss = ((model(x) - target) ** 2).mean()
+            loss.backward()
+            opt.step()
+            hidden.resync()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        losses.append(float(loss.detach()))
+    assert losses[-1] < losses[0]
+    for k in ("vals", "vals_t"):
+        assert not getattr(hidden, k).detach()[~hidden.masks[k]].any()

@@ -21,10 +21,11 @@ from tpusparse_torch.config import SpmvConfig
 from tpusparse_torch.testing.tester import KernelEntry, SpmvTester
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the modules of the router's banded and block-structured routes, which
-# the import rule must reach as well
+# the modules of the router's banded and block-structured routes and of
+# the training path, which the import rule must reach as well
 NEW_MODULES = ("formats.bsr", "formats.tcsr", "formats.dia",
-               "kernels.bsr_spmv", "kernels.bsell_spmv", "kernels.dia_spmv")
+               "kernels.bsr_spmv", "kernels.bsell_spmv", "kernels.dia_spmv",
+               "autodiff", "nn", "prune", "graph", "kernels.sell_grad")
 JAX_TWIN = {"dense_torch": "dense_xla", "dense_cuda": "dense_pallas",
             "sell_cuda": "sell_pallas", "awsp_cuda": "awsp_pallas"}
 

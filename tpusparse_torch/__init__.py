@@ -1,14 +1,16 @@
 """tpusparse_torch: the PyTorch/CUDA port of tpusparse for NVIDIA Hopper.
 
 ``Y = X @ A`` SpMV/SpMM over SELL, AWSP, RSELL, ASP, BSR, TCSR and DIA
-packs, picked by
-``auto_format`` or by hand, with kernels written by hand for ``sm_90a``
+packs, picked by ``auto_format`` or by hand, and sparse-weight training
+(``linear_map``, ``trainable_linear``, ``nn.SparseLinear``) with the
+pruning and graph on-ramps, with kernels written by hand for ``sm_90a``
 (``csrc/``), built with ``nvcc`` at first use. Entry
 points run on the GPU unless the caller passes ``device="cpu"``, which runs
 each kernel's plain PyTorch version. The package imports torch and numpy
 only; the JAX package ``tpusparse`` is its reference and is never imported.
 """
 
+from tpusparse_torch.autodiff import linear_map, trainable_linear  # noqa: F401
 from tpusparse_torch.config import SpmvConfig  # noqa: F401
 from tpusparse_torch.formats import (  # noqa: F401
     AspMatrix,
@@ -21,8 +23,11 @@ from tpusparse_torch.formats import (  # noqa: F401
     TcsrMatrix,
     auto_format,
     from_reference_arrays,
+    load_trainable_arrays,
     matrix_stats,
     matrix_stats_csr,
 )
+from tpusparse_torch.graph import normalized_adjacency  # noqa: F401
 from tpusparse_torch.ops import spmm, spmv  # noqa: F401
+from tpusparse_torch.prune import block_prune, magnitude_prune, nm_prune  # noqa: F401
 from tpusparse_torch.testing import KernelEntry, SpmvTester  # noqa: F401

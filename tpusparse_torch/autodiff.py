@@ -1,0 +1,235 @@
+"""Differentiable sparse linear maps, ``y = x @ A``, as
+``torch.autograd.Function``s.
+
+Counterpart of ``tpusparse/autodiff.py`` without ``linear_map_sharded`` and
+``trainable_linear_sharded`` (ROADMAP.md item 22). For a linear map the rule
+is exact:
+
+    y = x @ A        =>        dL/dx = g @ A.T        (g = dL/dy)
+
+so the backward pass is another SpMV/SpMM, through a format packed from
+``A.T``.
+
+- ``linear_map`` freezes the packed values (a fixed operator: masked
+  pruning, a graph's normalized adjacency) and differentiates in x only.
+- ``trainable_linear`` trains the values of a frozen mask. It keeps the
+  values in two tied layouts, the forward SELL pack and the pack of A.T,
+  so the backward's ``dx`` streams the transpose values directly instead
+  of permuting slots every step. Each copy gets the same gradient in its
+  own layout from K10 (``kernels/sell_grad.py``), so any elementwise
+  optimizer update keeps them tied up to rounding; ``resync`` re-ties
+  ``vals_t`` from ``vals`` exactly.
+
+The JAX package's ``statics=`` keyword exists for the TPU's remote compile
+(its inline constants outgrew the payload limit); here the structure planes
+are device tensors from construction and PyTorch runs eagerly, so it has
+no counterpart.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from tpusparse_torch.formats.csr import CsrMatrix
+from tpusparse_torch.formats.sell import (_sorted_rows, as_input,
+                                          sell_pack_csr, sell_slot_flat)
+from tpusparse_torch.kernels.sell_grad import sell_dvals
+from tpusparse_torch.kernels.sell_spmv import sell_spmm
+from tpusparse_torch.utils import resolve_device
+
+
+def _run(f: Any, v: torch.Tensor) -> torch.Tensor:
+    return f.spmv(v) if v.ndim == 1 else f.spmm(v)
+
+
+class _LinearMap(torch.autograd.Function):
+    """``x @ A`` through ``fmt``; the backward is ``g @ A.T`` through
+    ``fmt_t``. The packed values are constants."""
+
+    @staticmethod
+    def forward(ctx, x, fmt, fmt_t):
+        ctx.fmt_t = fmt_t
+        return _run(fmt, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _run(ctx.fmt_t, g.contiguous()), None, None
+
+
+def linear_map(fmt: Any, fmt_t: Any = None, *,
+               csr: CsrMatrix | None = None) -> Callable[[Any], torch.Tensor]:
+    """``apply(x) -> x @ A`` (1-D x: spmv, 2-D: row-batch spmm),
+    differentiable in x; dx has x's shape.
+
+    ``fmt``   — any packed format with spmv/spmm (SELL, AWSP, RSELL, TCSR,
+       BSR, DIA, ASP).
+    ``fmt_t`` — a format of the same API packed from ``A.T``, for the
+       backward. Omitted: packed as ``type(fmt).from_csr(csr.transpose())``
+       when ``csr`` (the CSR ``fmt`` was packed from) is given, else from
+       ``fmt.to_dense().T`` (a host round trip; pass ``csr`` for matrices
+       that should never be dense). Either lands on ``fmt``'s device.
+    """
+    if fmt_t is None:
+        cls = type(fmt)
+        if csr is not None:
+            fmt_t = cls.from_csr(csr.transpose(), device=fmt.device)
+        else:
+            mm, nn = fmt.shape
+            if mm * nn * 4 > 2 << 30:
+                raise ValueError(
+                    f"packing the backward transpose from a dense "
+                    f"round-trip would allocate {mm * nn * 4 / 1e9:.1f} GB; "
+                    "pass csr= (no-densify, O(nnz)) or a pre-packed fmt_t=")
+            fmt_t = cls.from_dense(fmt.to_dense().T, device=fmt.device)
+    m, n = fmt.shape
+    if tuple(fmt_t.shape) != (n, m):
+        raise ValueError(
+            f"fmt_t.shape {tuple(fmt_t.shape)} is not the transpose of "
+            f"fmt.shape {(m, n)}")
+
+    def apply(x):
+        return _LinearMap.apply(as_input(x, fmt.device), fmt, fmt_t)
+
+    return apply
+
+
+def _signed_idx(idx: np.ndarray,
+                flat: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``(signed, mask)``: int8 in-window indices with pad slots forced to
+    -1 (a zero pad would alias in-window offset 0 and leak cotangent),
+    plus the live-slot boolean mask."""
+    mask = np.zeros(idx.size, dtype=bool)
+    mask[flat] = True
+    mask = mask.reshape(idx.shape)
+    return np.where(mask, idx, -1).astype(np.int8), mask
+
+
+class _TwinPack:
+    """One packing pass for the twin-layout trainable paths, on the host.
+
+    Sorts the CSR first (legal CSR does not guarantee within-row order, and
+    every slot plane below assumes the packer's ranking), then packs both
+    layouts (``sell_pack_csr`` dicts of host tensors), their live-slot
+    maps and the signed idx planes."""
+
+    def __init__(self, csr: CsrMatrix):
+        self.csr = _sorted_rows(csr)
+        self.csr_t = self.csr.transpose()            # O(nnz), computed once
+        self.fmt = sell_pack_csr(self.csr)
+        self.fmt_t = sell_pack_csr(self.csr_t)
+        self.flat_f = sell_slot_flat(self.csr, self.fmt["w"])
+        self.flat_t = sell_slot_flat(self.csr_t, self.fmt_t["w"])
+        self.s_f, self.mask_f = _signed_idx(self.fmt["idx"].numpy(),
+                                            self.flat_f)
+        self.s_t, self.mask_t = _signed_idx(self.fmt_t["idx"].numpy(),
+                                            self.flat_t)
+
+    def retie_map(self) -> tuple[np.ndarray, np.ndarray]:
+        """``(gather, live)`` in the transpose layout: transpose entry i is
+        forward entry ``order[i]`` (``CsrMatrix.transpose``'s stable
+        counting sort), so ``vals_t.ravel() = where(live,
+        vals.ravel()[gather], 0)``."""
+        order = np.argsort(self.csr.col_idx, kind="stable")
+        t_map = np.full(self.s_t.size, -1, dtype=np.int64)
+        t_map[self.flat_t] = self.flat_f[order]
+        return np.clip(t_map, 0, None).astype(np.int32), t_map >= 0
+
+
+def twin_leaves(pack: _TwinPack, dev: torch.device) -> dict[str, Any]:
+    """The device tensors of a twin pack: ``statics`` (idx, idx_t, s_f,
+    s_t), ``params`` (vals, vals_t; no grad yet), ``masks``, the re-tie map
+    (``gather``, ``live``, shaped as vals_t) and the matrix ``shape``."""
+    gather, live = pack.retie_map()
+    t_shape = pack.fmt_t["vals"].shape
+
+    def to(a):
+        return torch.as_tensor(a).to(dev)
+
+    return {
+        "statics": {"idx": to(pack.fmt["idx"]), "idx_t": to(pack.fmt_t["idx"]),
+                    "s_f": to(pack.s_f), "s_t": to(pack.s_t)},
+        "params": {"vals": to(pack.fmt["vals"]),
+                   "vals_t": to(pack.fmt_t["vals"])},
+        "masks": {"vals": to(pack.mask_f), "vals_t": to(pack.mask_t)},
+        "gather": to(gather), "live": to(live.reshape(t_shape)),
+        "shape": pack.fmt["shape"],
+    }
+
+
+def retied(vals: torch.Tensor, gather: torch.Tensor,
+           live: torch.Tensor) -> torch.Tensor:
+    """``vals_t`` re-derived from ``vals`` exactly: one gather on the
+    device, no host sync."""
+    flat = vals.detach().reshape(-1).index_select(0, gather)
+    return torch.where(live, flat.reshape(live.shape), 0.0)
+
+
+class TwinSell(torch.autograd.Function):
+    """``y = x @ A`` over the twin SELL layouts, differentiable in both
+    value copies and x (shape (..., m) -> (..., n)). Forward: K1 on
+    ``(idx, vals)``. Backward: K1 on
+    ``(idx_t, vals_t)`` for dx, K10 on ``s_f`` for ``vals`` and K10 on
+    ``s_t`` with x and g swapped for ``vals_t`` (``tpusparse/autodiff.py:
+    282-291``), each only where ``ctx.needs_input_grad`` asks for it."""
+
+    @staticmethod
+    def forward(ctx, vals, vals_t, x, statics, shape):
+        ctx.statics, ctx.shape = statics, shape
+        ctx.save_for_backward(vals_t, x)
+        y = sell_spmm(statics["idx"], vals, x.reshape(-1, x.shape[-1])
+                      .contiguous(), n=shape[1])
+        return y.reshape(*x.shape[:-1], shape[1])
+
+    @staticmethod
+    def backward(ctx, gy):
+        vals_t, x = ctx.saved_tensors
+        st, (m, _) = ctx.statics, ctx.shape
+        need_v, need_vt, need_x = ctx.needs_input_grad[:3]
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        g2 = gy.reshape(-1, gy.shape[-1]).contiguous()
+        dvals = sell_dvals(st["s_f"], x2, g2) if need_v else None
+        dvals_t = sell_dvals(st["s_t"], g2, x2) if need_vt else None
+        dx = sell_spmm(st["idx_t"], vals_t, g2, n=m).reshape(x.shape) \
+            if need_x else None
+        return dvals, dvals_t, dx, None, None
+
+
+def trainable_linear(csr: CsrMatrix, device=None):
+    """Sparse-weight training: ``apply(params, x) = x @ A``, differentiable
+    in the packed SELL values and in x. ``device=None`` is the GPU.
+
+    Returns ``(apply, params, masks, resync)``:
+      - ``params = {"vals", "vals_t"}``: leaf tensors on the device that
+        require grad, the values in the forward layout and in the transpose
+        layout; tied copies of the same weights (module docstring). Pass
+        ``params.values()`` to a ``torch.optim`` optimizer.
+      - ``masks``: bool tensors of the same shapes, True on real slots. Pad
+        slots get exactly zero gradient; an update that moves parameters
+        without gradients (weight decay) must respect the mask itself: a
+        nonzero pad would enter the product at in-window offset 0.
+      - ``resync(params)`` re-ties ``vals_t`` from ``vals`` exactly, in
+        place (the optimizer keeps its references), and returns
+        ``params``.
+      - ``apply.statics``: the structure planes ``idx``, ``idx_t``, ``s_f``,
+        ``s_t`` on the device.
+    """
+    dev = resolve_device(device)
+    leaves = twin_leaves(_TwinPack(csr), dev)
+    statics, shape = leaves["statics"], leaves["shape"]
+    gather, live = leaves["gather"], leaves["live"]
+    params = {k: v.requires_grad_() for k, v in leaves["params"].items()}
+
+    def apply(p, x):
+        return TwinSell.apply(p["vals"], p["vals_t"], as_input(x, dev),
+                              statics, shape)
+
+    def resync(p):
+        with torch.no_grad():
+            p["vals_t"].copy_(retied(p["vals"], gather, live))
+        return p
+
+    apply.statics = statics
+    return apply, params, leaves["masks"], resync

@@ -7,7 +7,10 @@ d = 0.15: RSELL with its unpermute at B = 1, ASP at B = 8), its
 block-structured path (blockpruned-4096: TCSR's SELL tier, K7, at B = 1 and
 its dense tier, K6, at B = 8) and its banded path (the 1024^2 5-point
 Laplacian as DIA: K8 at B = 1, the shifted torch form at B = 8), each as
-``auto_format`` picks them, it traces ``REPS`` calls with
+``auto_format`` picks them, and for the training path (``trainable_linear``
+on the canonical matrix: K10 alone, and the fwd+bwd step with dx and both
+value gradients, K1 x2 + K10 x2, at B = 1 and 8), it traces ``REPS`` calls
+with
 ``torch.profiler``, each after the same read-only 256 MB L2 flush as
 ``bench.runner``, and prints one JSON line per entry: every CUDA kernel's device time per call (the flush's
 reduction and the memset it issues left out) and their sum. Comparing the sum with ``device_time``'s
@@ -21,10 +24,15 @@ import json
 
 import torch
 
+import numpy as np
+
+from tpusparse_torch.autodiff import trainable_linear
 from tpusparse_torch.bench.runner import FLUSH_BYTES
 from tpusparse_torch.bench.suite import _canonical_workload, _fmt_run, registry
 from tpusparse_torch.config import SpmvConfig
 from tpusparse_torch.formats.auto import auto_format, matrix_stats
+from tpusparse_torch.formats.csr import CsrMatrix
+from tpusparse_torch.kernels.sell_grad import sell_dvals
 from tpusparse_torch.testing import generators
 from tpusparse_torch.utils import resolve_device
 
@@ -95,6 +103,26 @@ def main() -> None:
         xt = torch.as_tensor(x[0] if batch == 1 else x, device=dev)
         _report(f"banded_{type(fmt).__name__}", batch,
                 kernel_times(_fmt_run, fmt, xt))
+    _training(dev)
+
+
+def _training(dev) -> None:
+    """K10 alone and the fwd+bwd step on the canonical matrix."""
+    a, _ = _canonical_workload(SpmvConfig())
+    apply, params, _, _ = trainable_linear(CsrMatrix.from_dense(a),
+                                           device=dev)
+    targets = [params["vals"], params["vals_t"]]
+    for batch in (1, 8):
+        x = torch.as_tensor(generators.random_sparse_batch(
+            batch, a.shape[0], 0.5, seed=0), device=dev)
+        g = torch.as_tensor(np.random.default_rng(0).uniform(
+            -1, 1, (batch, a.shape[1])).astype(np.float32), device=dev)
+        _report("train_K10", batch, kernel_times(
+            lambda s, xx: sell_dvals(s, xx, g), apply.statics["s_f"], x))
+        xr = x.clone().requires_grad_()
+        _report("train_step", batch, kernel_times(
+            lambda p, xx: torch.autograd.grad(apply(p, xx), targets + [xx],
+                                              g), params, xr))
 
 
 if __name__ == "__main__":

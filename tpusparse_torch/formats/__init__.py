@@ -12,4 +12,7 @@ from tpusparse_torch.formats.auto import (  # noqa: F401
     matrix_stats_csr,
     route,
 )
-from tpusparse_torch.formats.convert import from_reference_arrays  # noqa: F401
+from tpusparse_torch.formats.convert import (  # noqa: F401
+    from_reference_arrays,
+    load_trainable_arrays,
+)

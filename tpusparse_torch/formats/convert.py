@@ -18,6 +18,12 @@ the dict:
 only. TCSR's ``bsr`` is the dense tier as a BSR dict (its ``kind`` may be
 left out) or None. bf16 values arrive as a ``uint16`` view of their bits
 (numpy has no bf16 of its own).
+
+``load_trainable_arrays`` carries trained values the same way: the numpy
+leaves of a JAX ``trainable_linear``'s params (``{"vals", "vals_t"}``) or of
+a flax ``SparseLinear`` param subtree (plus ``"bias"``), copied into the
+port's ``params`` dict or ``SparseLinear`` module built from the same CSR,
+so a layer trained in JAX goes on training here.
 """
 
 from __future__ import annotations
@@ -116,3 +122,27 @@ def from_reference_arrays(d: dict[str, Any], device=None):
                           scales=scales)
     return AwspMatrix(idx.to(dev), vals.to(dev), *meta, int(d["g"]),
                       int(d["nnz"]))
+
+
+def load_trainable_arrays(target, leaves: dict[str, Any]):
+    """Copy JAX-trained leaves into ``target`` in place, after checking
+    that the keys, shapes and dtypes (fp32) are those of ``target``'s.
+    ``target``: the ``params`` of ``trainable_linear`` (keys ``vals``,
+    ``vals_t``) or a ``SparseLinear`` (the same, plus ``bias`` when it has
+    one). Returns ``target``."""
+    if isinstance(target, torch.nn.Module):
+        dst = dict(target.named_parameters(recurse=False))
+    else:
+        dst = dict(target)
+    if set(leaves) != set(dst):
+        raise ValueError(f"leaves {sorted(leaves)} do not match the "
+                         f"target's parameters {sorted(dst)}")
+    for k, t in dst.items():
+        v = np.asarray(leaves[k])
+        if v.dtype != np.float32 or v.shape != tuple(t.shape):
+            raise ValueError(f"{k}: got {v.dtype} {v.shape}, the target "
+                             f"holds float32 {tuple(t.shape)}")
+    with torch.no_grad():
+        for k, t in dst.items():
+            t.copy_(torch.from_numpy(np.ascontiguousarray(leaves[k])))
+    return target

@@ -30,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("sell_spmv.cu", "dense.cu", "awsp_spmv.cu", "rsell_spmv.cu",
            "permute.cu", "asp_spmv.cu", "bsr_spmv.cu", "bsell_spmv.cu",
-           "dia_spmv.cu")
+           "dia_spmv.cu", "sell_grad.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
@@ -60,6 +60,8 @@ _SIGNATURES = {
     "tps_bsell_spmm": [_P] * 8 + [_I] * 6 + [_P],
     # offsets (host int32), vals, x, y, k, sym, n, ldv, device, stream
     "tps_dia_spmv": [_P] * 4 + [_I] * 5 + [_P],
+    # idx_signed, x, g, out, nb, nt, w, batch, ldx, ldg, device, stream
+    "tps_sell_dvals": [_P] * 4 + [_I] * 7 + [_P],
 }
 
 

@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the ten hand-written kernels from ``tpusparse_torch/csrc`` with
+It builds the twelve hand-written kernels from ``tpusparse_torch/csrc`` with
 ``nvcc`` (one process per source, first use), then, at the reference
 workload (``Y = X @ A``, fp32, M = N = 4096, ~50% sparsity in A and X,
 seed 0) for B = 1 and B = 8:
@@ -77,7 +77,29 @@ and then the training path, on the headline matrix as a trainable weight
 12. holds K10 at B = 1 and 8 against its plain version and the oracle,
     times it, its plain version and ``torch.sparse.sampled_addmm``
     (cuSPARSE SDDMM on A's CSR, the yardstick), and times the forward and
-    the fwd+bwd step beside their bytes bounds.
+    the fwd+bwd step beside their bytes bounds;
+
+and then the JAX package's full bench registry and its floors study:
+
+13. the full registry's own entries (``ell_torch``, ``bell_cuda``,
+    ``sell_binned_cuda``, ``bsr_cuda``, ``tcsr_cuda``, ``rsell_cuda``,
+    ``asp_cuda``) at the headline workload, B = 1 and 8, through
+    ``SpmvTester`` against the oracle, each timed (its artifact check on
+    ``format_bytes``: BELL's ``read_bytes``), every launch counter set to 0
+    just before each entry and read just after: ``bell_cuda`` must launch
+    K12, ``sell_binned_cuda`` K1 and K5, ``bsr_cuda`` K6, ``tcsr_cuda`` K7
+    and/or K6, ``rsell_cuda`` K4, ``asp_cuda`` K9, and ``ell_torch`` none;
+14. holds K12 at B = 1 and 8 against its plain version and the oracle,
+    timed beside its plain version and cuSPARSE CSR; a small BELL at
+    block_m 128 and 256; ``BinnedSellMatrix`` built on the skew matrix
+    (K1 once per bucket and K5 once a call, against the oracle); and
+    ``auto_format`` on the router test's skewed 65536^2 CSR at B = 48,
+    which must now pack ``BinnedSellMatrix``;
+15. the floors study (``tpusparse_torch.bench.report``: 4096^2, d in
+    {0.1, 0.5}, B in {1, 8, 32}): K11 against its plain version and the
+    oracle at every point and on a pad-collision matrix (row 0 all ones),
+    then K11, K1, cuBLAS and cuSPARSE timed at every point, K11's launches
+    counted over the timed study alone.
 
 Kernel against plain version: atol 1e-4 (the same products summed in
 another order); against the float64 oracle: atol 1e-3 (the repo's
@@ -96,13 +118,15 @@ import time
 import numpy as np
 import torch
 
-from tpusparse_torch import (AspMatrix, AwspMatrix, BsrMatrix, CsrMatrix,
+from tpusparse_torch import (AspMatrix, AwspMatrix, BellMatrix,
+                             BinnedSellMatrix, BsrMatrix, CsrMatrix,
                              DiaMatrix, RsellMatrix, SellMatrix, SpmvConfig,
                              TcsrMatrix, auto_format, matrix_stats,
                              matrix_stats_csr, spmm, spmv, trainable_linear)
 from tpusparse_torch.autodiff import retied
+from tpusparse_torch.bench import report
 from tpusparse_torch.bench.roofline import (ARTIFACT_SHARE, card_info,
-                                            detect_hbm_gbps,
+                                            detect_hbm_gbps, format_bytes,
                                             roofline_fraction)
 from tpusparse_torch.bench.runner import device_time
 from tpusparse_torch.bench.suite import registry
@@ -111,6 +135,7 @@ from tpusparse_torch.formats.auto import route
 from tpusparse_torch.kernels import _build
 from tpusparse_torch.kernels.asp_spmv import asp_spmm, asp_spmm_plain
 from tpusparse_torch.kernels.awsp_spmv import awsp_spmm, awsp_spmm_plain
+from tpusparse_torch.kernels.bell_spmv import bell_spmm, bell_spmm_plain
 from tpusparse_torch.kernels.bsell_spmv import bsell_spmm, bsell_spmm_plain
 from tpusparse_torch.kernels.bsr_spmv import bsr_spmm, bsr_spmm_plain
 from tpusparse_torch.kernels.dense import dense_cuda, dense_plain, dense_torch
@@ -119,6 +144,8 @@ from tpusparse_torch.kernels.permute import (permute_columns,
                                              permute_columns_plain)
 from tpusparse_torch.kernels.rsell_spmv import rsell_spmm, rsell_spmm_plain
 from tpusparse_torch.kernels.sell_grad import sell_dvals, sell_dvals_plain
+from tpusparse_torch.kernels.sell_mxu_spmm import (sell_mxu_spmm,
+                                                   sell_mxu_spmm_plain)
 from tpusparse_torch.kernels.sell_spmv import sell_spmm, sell_spmm_plain
 from tpusparse_torch.nn import SparseLinear
 from tpusparse_torch.testing import generators, reference
@@ -140,7 +167,18 @@ BLOCK_WRAPPERS = {"bsell_spmv": bsell_spmm, "bsr_spmv": bsr_spmm}
 BANDED_WRAPPERS = {"dia_spmv": dia_spmv}
 TRAIN_WRAPPERS = {"sell_spmv": sell_spmm, "sell_grad": sell_dvals}
 ALL_WRAPPERS = {**WRAPPERS, **SKEW_WRAPPERS, **BLOCK_WRAPPERS,
-                **BANDED_WRAPPERS, **TRAIN_WRAPPERS}
+                **BANDED_WRAPPERS, **TRAIN_WRAPPERS, "bell_spmv": bell_spmm,
+                "sell_mxu_spmm": sell_mxu_spmm}
+# the kernels each full-registry entry must launch (tcsr_cuda: K7 and/or
+# K6, whichever tiers its pack holds)
+FULL_KERNELS = {"ell_torch": (), "bell_cuda": ("bell_spmv",),
+                "sell_binned_cuda": ("sell_spmv", "permute"),
+                "bsr_cuda": ("bsr_spmv",),
+                "tcsr_cuda": ("bsell_spmv", "bsr_spmv"),
+                "rsell_cuda": ("rsell_spmv",), "asp_cuda": ("asp_spmv",)}
+# the floors point whose K11 time heads its row (the largest batch, where
+# the decompress-to-dense design is meant to pay)
+FLOORS_HEAD = (0.5, 32)
 # the gallery's blockpruned-4096 (tpusparse/bench/gallery.py) and the 1M-
 # unknown Laplacian (BENCH.md §Solver), and the batch each kernel's path runs
 BLOCKY = dict(m=4096, n=4096, block=128, keep_frac=0.3, fill=0.5, seed=9)
@@ -172,6 +210,10 @@ META = {
                  "tpusparse/kernels/dia_spmv.py:184"),
     "sell_grad": ("tpusparse_torch/csrc/sell_grad.cu",
                   "tpusparse/kernels/sell_grad.py:92"),
+    "bell_spmv": ("tpusparse_torch/csrc/bell_spmv.cu",
+                  "tpusparse/kernels/bell_spmv.py:137"),
+    "sell_mxu_spmm": ("tpusparse_torch/csrc/sell_mxu_spmm.cu",
+                      "tpusparse/kernels/sell_mxu_spmm.py:98"),
 }
 
 
@@ -898,6 +940,193 @@ def step_times(apply, params, m, n, dev) -> dict:
     return out
 
 
+def full_registry_path() -> dict[str, dict[str, int]]:
+    """Phase 13: the full registry's own entries at the headline workload
+    through ``SpmvTester``, each against the oracle and timed, its
+    launches counted from just before it to just after."""
+    packs: dict[str, object] = {}
+
+    def cached(e):
+        def prepare(a, d):
+            if e["name"] not in packs:      # the same A at B = 1 and 8
+                t0 = time.perf_counter()
+                packs[e["name"]] = e["prepare"](a, d)
+                print(f"   {e['name']}: pack + upload "
+                      f"{time.perf_counter() - t0:.1f} s, "
+                      f"{format_bytes(packs[e['name']]) / 1e6:.2f} MB read")
+            return packs[e["name"]]
+        return prepare
+
+    entries = registry(full=True)[4:]
+    require([e["name"] for e in entries] == list(FULL_KERNELS),
+            f"full registry {[e['name'] for e in entries]}")
+    counts = {e["name"]: dict.fromkeys(ALL_WRAPPERS, 0) for e in entries}
+    for batch in BATCHES:
+        tester = SpmvTester(SpmvConfig(batch=batch), device="cuda")
+        print(f"-- full registry, B={batch}")
+        for e in entries:
+            entry = KernelEntry(e["name"], cached(e), e["run"])
+            torch.cuda.synchronize()
+            zero_counts()
+            rep = tester.check(entry, time_it=True)
+            torch.cuda.synchronize()
+            for k, v in read_counts(ALL_WRAPPERS).items():
+                counts[e["name"]][k] += v
+            require(rep.ok, f"{e['name']} B={batch}: {rep}")
+            t = rep.timing
+            share = roofline_fraction(t.bytes_moved, t.seconds)
+            require(share <= ARTIFACT_SHARE,
+                    f"{e['name']}: roofline share {share:.3f} is an artifact")
+            print(f"   {e['name']}: max|y-oracle|={rep.max_abs_err:.3e}, "
+                  f"{t.seconds * 1e6:.2f} us, {t.nnz_per_s / 1e9:.3f} "
+                  f"Gnnz/s, roofline {share:.3f}")
+    launched = {name: {k: v for k, v in c.items() if v}
+                for name, c in counts.items()}
+    print("launches on the full registry:", json.dumps(launched))
+    for name, kernels in FULL_KERNELS.items():
+        if name == "tcsr_cuda":
+            require(any(launched[name].get(k) for k in kernels),
+                    f"{name}: neither K7 nor K6 launched")
+            require(set(launched[name]) <= set(kernels),
+                    f"{name}: launched {launched[name]}")
+        else:
+            require(set(launched[name]) == set(kernels),
+                    f"{name}: launched {launched[name]}, want {kernels}")
+    return launched
+
+
+def bell_kernel_cases(a, dev):
+    """K12 on the headline matrix's BELL pack (block_m 512)."""
+    n = a.shape[1]
+    nnz = int((a != 0).sum())
+    f = BellMatrix.from_dense(a, device=dev)
+    at_csr = torch.from_numpy(np.ascontiguousarray(a.T)).to(dev) \
+        .to_sparse_csr()
+    print(f"   {f!r}, read_bytes {f.read_bytes() / 1e6:.2f} MB")
+
+    def bell_case(xt, y_ref):
+        args = (f.bitmap, f.vals, xt)
+        nbytes = f.read_bytes() + 4 * (xt.numel() + xt.shape[0] * n)
+        return (lambda: bell_spmm(*args, block_m=f.block_m, n=n),
+                lambda: bell_spmm_plain(*args, block_m=f.block_m, n=n),
+                cusparse(at_csr, xt), nbytes, 2 * nnz * xt.shape[0], y_ref)
+
+    return {"bell_spmv": bell_case}
+
+
+def check_bell_block_sizes(dev) -> None:
+    """K12 on a small unaligned matrix at block_m 128 and 256."""
+    a = generators.random_sparse_matrix(1000, 700, density=0.3, seed=12)
+    for block_m in (128, 256):
+        f = BellMatrix.from_dense(a, block_m=block_m, device=dev)
+        for batch in BATCHES:
+            x = generators.random_sparse_batch(batch, 1000, 0.5, seed=13)
+            xt = torch.from_numpy(x).to(dev)
+            yk = bell_spmm(f.bitmap, f.vals, xt, block_m=block_m, n=700)
+            e_plain = max_err(yk, bell_spmm_plain(f.bitmap, f.vals, xt,
+                                                  block_m=block_m, n=700))
+            e_ref = max_err(yk, reference.sgemm_cpu(x, a))
+            print(f"bell block_m={block_m} (w {f.w}) 1000x700 B={batch}: "
+                  f"|k-plain|={e_plain:.3e} |k-oracle|={e_ref:.3e}")
+            require(e_plain <= PLAIN_ATOL and e_ref <= ATOL,
+                    f"bell block_m={block_m} B={batch} disagrees")
+
+
+def check_binned(a_s, x1_s, x8_s, dev) -> None:
+    """Binned SELL on the skew matrix: K1 once per bucket, K5 once a call;
+    and auto_format's binned route on a skewed 65536^2 CSR."""
+    t0 = time.perf_counter()
+    f = BinnedSellMatrix.from_dense(a_s, device=dev)
+    print(f"-- binned SELL on the skew matrix: {f!r}, pack + upload "
+          f"{time.perf_counter() - t0:.1f} s")
+    for x in (x1_s, x8_s):
+        xt = torch.from_numpy(x).to(dev)
+        torch.cuda.synchronize()
+        zero_counts()
+        y = spmv(f, xt) if x.ndim == 1 else spmm(f, xt)
+        torch.cuda.synchronize()
+        counts = read_counts(("sell_spmv", "permute"))
+        want = reference.sgemv_cpu(x, a_s) if x.ndim == 1 \
+            else reference.sgemm_cpu(x, a_s)
+        err = max_err(y, want)
+        batch = 1 if x.ndim == 1 else x.shape[0]
+        print(f"   B={batch}: launches {json.dumps(counts)}, "
+              f"|y-oracle|={err:.3e}")
+        require(counts == {"sell_spmv": len(f.widths), "permute": 1},
+                f"binned B={batch}: K1 x{len(f.widths)} and K5 x1 expected")
+        require(err <= ATOL, f"binned B={batch} disagrees with the oracle")
+    n = 65536
+    rng = np.random.default_rng(0)
+    rows = np.sort(rng.integers(0, n, 200))
+    cols = rng.integers(0, n, 200)
+    vals = rng.uniform(-1, 1, 200).astype(np.float32)
+    csr = CsrMatrix.from_coo(n, n, rows, cols, vals)
+    stats = dict(density=1e-5, nnz=200, empty_block_frac=0.0, w_global=12,
+                 w_typical=8.0, slot_tile_bytes=1000)
+    b = auto_format(csr, expect_batch=48, stats=stats)   # device=None: GPU
+    require(isinstance(b, BinnedSellMatrix),
+            f"auto_format gave {type(b).__name__}, not BinnedSellMatrix")
+    x = np.zeros((2, n), np.float32)
+    x[:, rows] = rng.uniform(-1, 1, (2, 200))
+    want = np.zeros((2, n))
+    np.add.at(want.T, cols, (x[:, rows] * vals).T.astype(np.float64))
+    err = max_err(spmm(b, torch.from_numpy(x).to(dev)), want)
+    print(f"   auto_format(65536^2 skewed CSR, B=48) -> {b!r}; "
+          f"|y-oracle|={err:.3e}")
+    require(err <= ATOL, "binned route disagrees with the oracle")
+
+
+def floors_study(dev) -> tuple[list[dict], dict]:
+    """Phase 15: K11 checked at every floors point and on a pad-collision
+    matrix, then the timed study, K11's launches counted over it alone.
+    Returns (the study's rows, K11's kernel row)."""
+    t0 = time.perf_counter()
+    loads = report.workloads(dev)
+    print(f"-- floors study: packs + upload {time.perf_counter() - t0:.1f} s")
+    errs = report.check_points(loads)
+    bait = generators.random_sparse_matrix(4096, 4096, density=0.1, seed=61)
+    bait[0, :] = 1.0           # every column has an offset-0 entry
+    bait_sell = SellMatrix.from_dense(bait, device=dev)
+    for batch in (1, 32):
+        x = generators.random_sparse_batch(batch, 4096, 0.5, seed=61)
+        errs["pad collision", batch] = report.check_mxu(bait_sell, x, bait)
+    for key, (e_plain, e_ref) in errs.items():
+        print(f"   K11 {key}: |k-plain|={e_plain:.3e} |k-oracle|={e_ref:.3e}")
+    torch.cuda.synchronize()
+    zero_counts()
+    rows = report.floors(loads=loads, device=dev, check=False)
+    torch.cuda.synchronize()
+    k11 = read_counts(("sell_mxu_spmm",))["sell_mxu_spmm"]
+    require(k11 > 0, "sell_mxu_spmm: no launch in the floors study")
+    for r in rows:
+        share = r["bound_ms"] / r["mxu_ms"]
+        require(share <= ARTIFACT_SHARE,
+                f"K11 d={r['density']} B={r['batch']}: share {share:.3f}")
+        r["mxu_share"] = share
+    head = next(r for r in rows
+                if (r["density"], r["batch"]) == FLOORS_HEAD)
+    wl = next(w for w in loads if w["density"] == FLOORS_HEAD[0])
+    s = wl["sell"]
+    xt = torch.from_numpy(report.grid_batch(FLOORS_HEAD[1])).to(dev)
+    plain_ms = device_time(lambda: sell_mxu_spmm_plain(s.idx, s.vals, xt),
+                           warmup=1, reps=5).seconds * 1e3
+    print(f"sell_mxu_spmm d={FLOORS_HEAD[0]} B={FLOORS_HEAD[1]}: "
+          f"{head['mxu_ms'] * 1e3:.2f} us, bound {head['bound_ms'] * 1e3:.2f} "
+          f"us ({head['bound_by']}), dense-work floor "
+          f"{head['mxu_design_ms'] * 1e3:.2f} us, share "
+          f"{head['mxu_share']:.3f} | plain {plain_ms * 1e3:.2f} us | "
+          f"library {head['cusparse_ms'] * 1e3:.2f} us; launches {k11}")
+    row = {"name": "sell_mxu_spmm", "route": "cuda",
+           "source": META["sell_mxu_spmm"][0],
+           "replaces": META["sell_mxu_spmm"][1], "launches": k11,
+           "max_abs_err": max(e for e, _ in errs.values()),
+           "ms": head["mxu_ms"], "plain_ms": plain_ms,
+           "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+           "library_ms": head["cusparse_ms"],
+           "by_point": {f"d={r['density']},B={r['batch']}": r for r in rows}}
+    return rows, row
+
+
 def kernel_rows(results, launches, batch_of) -> list[dict]:
     rows = []
     for name, res in results.items():
@@ -982,11 +1211,23 @@ def main() -> int:
     steps = step_times(apply, params, cfg.m, cfg.n, dev)
     print(json.dumps({"training_step": steps}))
 
+    full_launches = full_registry_path()
+    print("-- K12 on the headline matrix")
+    bell_results = check_kernels(bell_kernel_cases(a, dev),
+                                 lambda x: reference.sgemm_cpu(x, a),
+                                 (x1[None, :], x8), dev)
+    check_bell_block_sizes(dev)
+    check_binned(a_s, x1_s, x8_s, dev)
+    _, k11_row = floors_study(dev)
+
     kernels = kernel_rows(results, launches, {}) + \
         kernel_rows(skew_results, skew_launches, PATH_BATCH) + \
         kernel_rows(block_results, block_launches, PATH_BATCH) + \
         kernel_rows(banded_results, banded_launches, PATH_BATCH) + \
-        kernel_rows(grad_results, {"sell_grad": k10}, PATH_BATCH)
+        kernel_rows(grad_results, {"sell_grad": k10}, PATH_BATCH) + \
+        kernel_rows(bell_results, full_launches["bell_cuda"], {}) + \
+        [k11_row]
+    require(len(kernels) == 12, f"{len(kernels)} kernel rows, want 12")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card["line"])

@@ -1,8 +1,9 @@
 """Each CUDA kernel of the port against its plain PyTorch version on the
 card, at a small size and at full size: the 4096 x 4096, d = 0.5 workload
-for K1-K3 and K10, the 8192 x 8192 powerlaw d = 0.15 workload for K4, K5
-and K9, blockpruned-4096 for K6 and K7, the 1024^2 5-point Laplacian for
-K8; and the training path's launches and its backward without a host sync.
+for K1-K3, K10, K11 and K12, the 8192 x 8192 powerlaw d = 0.15 workload
+for K4, K5, K9 and binned SELL, blockpruned-4096 for K6 and K7, the 1024^2
+5-point Laplacian for K8; the training path's launches and its backward
+without a host sync; and the full registry's public paths.
 
 Marked ``gpu``: here, with no card, every test skips (decided in a fixture,
 never at import). On the card, whose machine has no JAX, run:
@@ -22,13 +23,16 @@ import pytest
 import torch
 
 from tpusparse_torch.autodiff import _TwinPack, trainable_linear
-from tpusparse_torch.formats import (AspMatrix, AwspMatrix, BsrMatrix,
-                                     CsrMatrix, DiaMatrix, RsellMatrix,
-                                     SellMatrix, TcsrMatrix)
+from tpusparse_torch.bench.suite import registry
+from tpusparse_torch.formats import (AspMatrix, AwspMatrix, BellMatrix,
+                                     BinnedSellMatrix, BsrMatrix, CsrMatrix,
+                                     DiaMatrix, RsellMatrix, SellMatrix,
+                                     TcsrMatrix)
 from tpusparse_torch.formats import tcsr as tcsr_mod
 from tpusparse_torch.kernels.asp_spmv import asp_spmm, asp_spmm_plain
 from tpusparse_torch.kernels.awsp_spmv import (awsp_spmm, awsp_spmm_plain,
                                                device_group_plan)
+from tpusparse_torch.kernels.bell_spmv import bell_spmm, bell_spmm_plain
 from tpusparse_torch.kernels.bsell_spmv import bsell_spmm, bsell_spmm_plain
 from tpusparse_torch.kernels.bsr_spmv import bsr_spmm, bsr_spmm_plain
 from tpusparse_torch.kernels.dia_spmv import dia_spmv, dia_spmv_plain, fits
@@ -37,6 +41,8 @@ from tpusparse_torch.kernels.permute import (permute_columns,
                                              permute_columns_plain)
 from tpusparse_torch.kernels.rsell_spmv import rsell_spmm, rsell_spmm_plain
 from tpusparse_torch.kernels.sell_grad import sell_dvals, sell_dvals_plain
+from tpusparse_torch.kernels.sell_mxu_spmm import (sell_mxu_spmm,
+                                                   sell_mxu_spmm_plain)
 from tpusparse_torch.kernels.sell_spmv import sell_spmm, sell_spmm_plain
 from tpusparse_torch.nn import SparseLinear
 from tpusparse_torch.testing import generators, reference
@@ -555,3 +561,80 @@ def test_training_step_has_no_host_sync(cuda):
     assert losses[-1] < losses[0]
     for k in ("vals", "vals_t"):
         assert not getattr(hidden, k).detach()[~hidden.masks[k]].any()
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 12])
+@pytest.mark.parametrize("size,block_m", [("small", 128), ("small", 256),
+                                          ("unaligned", 512), ("odd", 512),
+                                          ("full", 512), ("full", 256)])
+def test_bell_kernel(cuda, size, block_m, batch):
+    """K12 at block_m 128, 256 and 512 (512 clamps to 256 on the unaligned
+    and odd sizes), m off the block grid, B = 12 over two batch tiles."""
+    a, x, y_ref = _workload(size, batch)
+    f = BellMatrix.from_dense(a, block_m=block_m, device=cuda)
+    xt = torch.from_numpy(x).to(cuda)
+    before = bell_spmm.launches
+    y = bell_spmm(f.bitmap, f.vals, xt, block_m=f.block_m, n=f.shape[1])
+    torch.cuda.synchronize()
+    assert bell_spmm.launches == before + 1
+    _close(y, bell_spmm_plain(f.bitmap, f.vals, xt, block_m=f.block_m,
+                              n=f.shape[1]), 1e-4)
+    _close(y, y_ref, 1e-3)
+    _close(f.spmv(xt[0]), y_ref[0], 1e-3)
+
+
+@pytest.mark.parametrize("kind", ["dense", "empty"])
+def test_bell_kernel_dense_and_empty(cuda, kind):
+    rng = np.random.default_rng(0)
+    a = rng.uniform(-1, 1, (256, 128)).astype(np.float32) \
+        if kind == "dense" else np.zeros((256, 128), np.float32)
+    f = BellMatrix.from_dense(a, block_m=256, device=cuda)
+    x = generators.random_sparse_batch(8, 256, 0.5, seed=1)
+    _close(f.spmm(torch.from_numpy(x).to(cuda)), reference.sgemm_cpu(x, a),
+           1e-3)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 32, 40])
+@pytest.mark.parametrize("size", ["small", "unaligned", "odd", "full"])
+def test_sell_mxu_kernel(cuda, size, batch):
+    """K11; B = 40 runs two batch tiles of 32. Row 0 set to 1: every column
+    has an offset-0 entry that the pad slots alias."""
+    m, n = SIZES[size]
+    a = generators.random_sparse_matrix(m, n, density=0.2, seed=61)
+    a[0, :] = 1.0
+    x = generators.random_sparse_batch(batch, m, 0.5, seed=61)
+    f = SellMatrix.from_dense(a, device=cuda)
+    xt = torch.from_numpy(x).to(cuda)
+    before = sell_mxu_spmm.launches
+    y = sell_mxu_spmm(f.idx, f.vals, xt, n=n)
+    torch.cuda.synchronize()
+    assert sell_mxu_spmm.launches == before + 1
+    _close(y, sell_mxu_spmm_plain(f.idx, f.vals, xt, n=n), 1e-4)
+    _close(y, reference.sgemm_cpu(x, a), 1e-3)
+
+
+def test_binned_public_path_launches(cuda):
+    """Binned SELL on the skew matrix: K1 once per bucket, K5 once."""
+    a = _skewed("full")
+    f = BinnedSellMatrix.from_dense(a, device=cuda)
+    x = generators.random_sparse_batch(8, a.shape[0], 0.5, seed=0)
+    xt = torch.from_numpy(x).to(cuda)
+    torch.cuda.synchronize()
+    k1, k5 = sell_spmm.launches, permute_columns.launches
+    y8 = f.spmm(xt)
+    y1 = f.spmv(xt[0])
+    torch.cuda.synchronize()
+    assert sell_spmm.launches - k1 == 2 * len(f.widths)
+    assert permute_columns.launches - k5 == 2
+    _close(y8, reference.sgemm_cpu(x, a), 1e-3)
+    _close(y1, reference.sgemv_cpu(x[0], a), 1e-3)
+
+
+@pytest.mark.parametrize("name", ["ell_torch", "bell_cuda",
+                                  "sell_binned_cuda", "bsr_cuda",
+                                  "tcsr_cuda", "rsell_cuda", "asp_cuda"])
+def test_full_registry_on_the_card(cuda, name):
+    a, x, y_ref = _workload("small", 3)
+    e = next(e for e in registry(full=True) if e["name"] == name)
+    _close(e["run"](e["prepare"](a, cuda), torch.from_numpy(x).to(cuda)),
+           y_ref, 1e-3)

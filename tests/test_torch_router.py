@@ -1,9 +1,10 @@
 """The port's router against the JAX package's: ``matrix_stats`` and
 ``matrix_stats_csr`` give the same dicts, ``route`` the same string for
 every case of the JAX router tests at B = 1, 4 and 8, ``predicted_bytes``
-the same bytes; ``auto_format`` packs the ported kinds into the port's
-classes (whose products meet the oracle on the CPU) and refuses the one
-kind not ported yet (binned SELL) rather than substituting another format.
+the same bytes; ``auto_format`` packs every kind into the port's classes
+(whose products meet the oracle on the CPU), binned SELL included, so no
+kind is left to refuse; every entry of the full bench registry meets the
+oracle.
 """
 
 import numpy as np
@@ -15,6 +16,7 @@ from tpusparse.formats.auto import matrix_stats_csr as jstats_csr
 from tpusparse.formats.auto import predicted_bytes as jpredicted
 from tpusparse.formats.auto import route as jroute
 from tpusparse.formats.auto import sorted_slot_tile_bytes as jsorted_bytes
+from tpusparse.formats.binned import BinnedSellMatrix as JBinned
 from tpusparse.formats.csr import CsrMatrix as JCsr
 from tpusparse.testing import generators as jgen
 from tpusparse.testing import reference
@@ -138,24 +140,49 @@ def test_auto_format_packs_port_classes(name, batch, structured, cls):
 
 
 def test_auto_format_refuses_kinds_not_ported():
-    assert set(NOT_PORTED) == {"binned"}
-    csr = CsrMatrix.from_coo(65536, 65536, np.arange(200), np.arange(200),
-                             np.ones(200, np.float32))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tpusparse_torch.auto_format(csr, expect_batch=48, stats=BIG_SKEW,
+    """No kind is left to refuse: the one the router could not pack before
+    (binned SELL, on the JAX router test's skewed 65536^2 CSR at B = 48,
+    where RSELL's budget no longer fits) now packs as ``BinnedSellMatrix``,
+    the same pack as the JAX package's. (Its 1.3 GB of mostly untouched
+    zero slots are compared, not multiplied: the products of binned SELL
+    are held to the oracle in tests/test_torch_binned.py.)"""
+    assert NOT_PORTED == {}
+    rng = np.random.default_rng(0)
+    n = 65536
+    rows = np.sort(rng.integers(0, n, 200))
+    csr = CsrMatrix.from_coo(n, n, rows, rng.integers(0, n, 200),
+                             rng.uniform(-1, 1, 200).astype(np.float32))
+    assert route(n, n, BIG_SKEW, expect_batch=48) == "binned"
+    f = tpusparse_torch.auto_format(csr, expect_batch=48, stats=BIG_SKEW,
                                     device="cpu")
+    assert type(f).__name__ == "BinnedSellMatrix"
+    jf = JBinned.from_csr(JCsr(csr.shape, csr.row_ptr, csr.col_idx,
+                               csr.values))
+    assert f.widths == jf.widths and f.nnz == jf.nnz == 200
+    assert np.array_equal(f.inv_perm, np.asarray(jf.inv_perm))
+    for b, jb in zip(f.buckets, jf.buckets, strict=True):
+        assert np.array_equal(b["idx"].numpy(), np.asarray(jb["idx"]))
+        assert np.array_equal(b["vals"].numpy(), np.asarray(jb["vals"]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tpusparse_torch.auto_format(_matrix("powerlaw"))
 
 
-def test_full_registry_adds_rsell_and_asp():
-    assert [e["name"] for e in registry(full=True)][4:] == ["rsell_cuda",
-                                                           "asp_cuda"]
+FULL_ONLY = ["ell_torch", "bell_cuda", "sell_binned_cuda", "bsr_cuda",
+             "tcsr_cuda", "rsell_cuda", "asp_cuda"]
+
+
+@pytest.mark.parametrize("name", FULL_ONLY)
+def test_full_registry_adds_rsell_and_asp(name):
+    """The full registry is the headline set plus the JAX full list in its
+    order, and each full entry meets the oracle on the CPU."""
+    entries = registry(full=True)
+    assert [e["name"] for e in entries][4:] == FULL_ONLY
+    assert [e["name"] for e in entries][:4] == \
+        [e["name"] for e in registry()]
+    e = next(e for e in entries if e["name"] == name)
     a = _matrix("powerlaw")
     x = torch.from_numpy(jgen.random_sparse_batch(2, 1024, 0.5, seed=9))
-    for e in registry(full=True)[4:]:
-        y = e["run"](e["prepare"](a, torch.device("cpu")), x)
-        np.testing.assert_allclose(y.numpy(),
-                                   reference.sgemm_cpu(x.numpy(), a),
-                                   rtol=0, atol=1e-3, err_msg=e["name"])
+    y = e["run"](e["prepare"](a, torch.device("cpu")), x)
+    np.testing.assert_allclose(y.numpy(), reference.sgemm_cpu(x.numpy(), a),
+                               rtol=0, atol=1e-3, err_msg=name)

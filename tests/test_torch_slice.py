@@ -1,7 +1,10 @@
 """The port's headline path as a whole, on the CPU: ``tpusparse_torch.spmv/
 spmm`` over the headline registry against the JAX package's registry for
-the same seed; the CsrMatrix guard; the device rule; and the import rule
-(no jax, tpusparse or ml_dtypes anywhere in the port)."""
+the same seed; every entry of the full registry against its JAX namesake
+(512 x 384 power-law, d = 0.15, B = 1 and 4; the JAX calls, ~30 s in all
+in Pallas interpret mode, most of it RSELL at B = 4, run once in a
+module-scoped fixture); the CsrMatrix guard; the device rule; and the
+import rule (no jax, tpusparse or ml_dtypes anywhere in the port)."""
 
 import os
 import subprocess
@@ -25,9 +28,36 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the training path, which the import rule must reach as well
 NEW_MODULES = ("formats.bsr", "formats.tcsr", "formats.dia",
                "kernels.bsr_spmv", "kernels.bsell_spmv", "kernels.dia_spmv",
-               "autodiff", "nn", "prune", "graph", "kernels.sell_grad")
+               "autodiff", "nn", "prune", "graph", "kernels.sell_grad",
+               "formats.ell", "formats.bell", "formats.binned",
+               "kernels.bell_spmv", "kernels.sell_mxu_spmm", "bench.report",
+               "bench.profile")
 JAX_TWIN = {"dense_torch": "dense_xla", "dense_cuda": "dense_pallas",
             "sell_cuda": "sell_pallas", "awsp_cuda": "awsp_pallas"}
+FULL_TWIN = {"ell_torch": "ell_xla", "bell_cuda": "bell_pallas",
+             "sell_binned_cuda": "sell_binned_pallas",
+             "bsr_cuda": "bsr_pallas", "tcsr_cuda": "tcsr_pallas",
+             "rsell_cuda": "rsell_pallas", "asp_cuda": "asp_pallas"}
+
+
+def _full_workload(batch):
+    a = jgen.random_sparse_matrix(512, 384, density=0.15, seed=0,
+                                  distribution="powerlaw")
+    x = jgen.random_sparse_vector(512, 0.5, seed=0) if batch == 1 else \
+        jgen.random_sparse_batch(batch, 512, 0.5, seed=0)
+    return a, x
+
+
+@pytest.fixture(scope="module")
+def jax_full():
+    """Every JAX full-registry entry at B = 1 and 4: {(name, B): y}."""
+    out = {}
+    for batch in (1, 4):
+        a, x = _full_workload(batch)
+        for e in jax_registry(full=True)[4:]:
+            out[e["name"], batch] = np.asarray(e["run"](e["prepare"](a), x),
+                                               np.float64)
+    return out
 
 
 @pytest.mark.parametrize("batch", [1, 3])
@@ -51,6 +81,24 @@ def test_headline_registry_matches_jax(batch):
                                    err_msg=e["name"])
         np.testing.assert_allclose(ty.numpy(), y_ref, rtol=0, atol=1e-3,
                                    err_msg=e["name"])
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("name", list(FULL_TWIN))
+def test_full_registry_matches_jax(jax_full, name, batch):
+    entries = registry(full=True)
+    assert [e["name"] for e in entries][4:] == list(FULL_TWIN)
+    assert [e["name"] for e in jax_registry(full=True)][4:] == \
+        list(FULL_TWIN.values())
+    a, x = _full_workload(batch)
+    e = next(e for e in entries if e["name"] == name)
+    ty = e["run"](e["prepare"](a, torch.device("cpu")), torch.from_numpy(x))
+    jy = jax_full[FULL_TWIN[name], batch]
+    assert ty.shape == jy.shape, name
+    np.testing.assert_allclose(ty.numpy(), jy, rtol=0, atol=1e-4)
+    y_ref = reference.sgemv_cpu(x, a) if batch == 1 else \
+        reference.sgemm_cpu(x, a)
+    np.testing.assert_allclose(ty.numpy(), y_ref, rtol=0, atol=1e-3)
 
 
 def test_public_spmv_spmm_on_cpu():

@@ -1,10 +1,11 @@
 """tpusparse_torch: the PyTorch/CUDA port of tpusparse for NVIDIA Hopper.
 
-``Y = X @ A`` SpMV/SpMM over SELL, AWSP, RSELL, ASP, BSR, TCSR and DIA
-packs, picked by ``auto_format`` or by hand, and sparse-weight training
-(``linear_map``, ``trainable_linear``, ``nn.SparseLinear``) with the
-pruning and graph on-ramps, with kernels written by hand for ``sm_90a``
-(``csrc/``), built with ``nvcc`` at first use. Entry
+``Y = X @ A`` SpMV/SpMM over SELL, AWSP, RSELL, ASP, BSR, TCSR, DIA, ELL,
+BELL and binned SELL packs, picked by ``auto_format`` or by hand, and
+sparse-weight training (``linear_map``, ``trainable_linear``,
+``nn.SparseLinear``) with the pruning and graph on-ramps, with kernels
+written by hand for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first
+use. Entry
 points run on the GPU unless the caller passes ``device="cpu"``, which runs
 each kernel's plain PyTorch version. The package imports torch and numpy
 only; the JAX package ``tpusparse`` is its reference and is never imported.
@@ -15,9 +16,12 @@ from tpusparse_torch.config import SpmvConfig  # noqa: F401
 from tpusparse_torch.formats import (  # noqa: F401
     AspMatrix,
     AwspMatrix,
+    BellMatrix,
+    BinnedSellMatrix,
     BsrMatrix,
     CsrMatrix,
     DiaMatrix,
+    EllMatrix,
     RsellMatrix,
     SellMatrix,
     TcsrMatrix,

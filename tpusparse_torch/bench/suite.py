@@ -4,8 +4,12 @@ The headline registry is the reference's one workload, ``Y = X @ A`` in
 fp32 at M = N = 4096 with ~50% sparsity in A and X, through four entries:
 ``dense_torch`` (cuBLAS, the vendor baseline), ``dense_cuda`` (K2),
 ``sell_cuda`` (K1) and ``awsp_cuda`` (K3, g = 8, full plan). The full
-registry adds ``rsell_cuda`` (K4, and K5 for a sorted pack) and
-``asp_cuda`` (K9, full plan), as the JAX package's full registry does.
+registry adds the JAX package's full list in its order
+(``tpusparse/bench/suite.py``), renamed: ``ell_torch`` (a torch gather, no
+kernel), ``bell_cuda`` (K12), ``sell_binned_cuda`` (K1 per bucket, then
+K5), ``bsr_cuda`` (K6, block_m = 512), ``tcsr_cuda`` (K7 and/or K6),
+``rsell_cuda`` (K4, and K5 for a sorted pack) and ``asp_cuda`` (K9, full
+plan).
 """
 
 from __future__ import annotations
@@ -56,8 +60,13 @@ def registry(full: bool = False) -> list[dict[str, Any]]:
     """The headline entries (``full``: and the other ported formats):
     name, prepare(dense, device) -> fmt, run(fmt, x) -> y."""
     from tpusparse_torch.formats.awsp import AwspMatrix
+    from tpusparse_torch.formats.bell import BellMatrix
+    from tpusparse_torch.formats.binned import BinnedSellMatrix
+    from tpusparse_torch.formats.bsr import BsrMatrix
+    from tpusparse_torch.formats.ell import EllMatrix
     from tpusparse_torch.formats.rsell import RsellMatrix
     from tpusparse_torch.formats.sell import SellMatrix
+    from tpusparse_torch.formats.tcsr import TcsrMatrix
     from tpusparse_torch.kernels.asp_spmv import AspMatrix
     from tpusparse_torch.kernels.dense import dense_cuda, dense_torch
 
@@ -77,6 +86,22 @@ def registry(full: bool = False) -> list[dict[str, Any]]:
     ]
     if full:
         entries += [
+            dict(name="ell_torch",
+                 prepare=lambda a, d: EllMatrix.from_dense(a, device=d),
+                 run=_fmt_run),
+            dict(name="bell_cuda",
+                 prepare=lambda a, d: BellMatrix.from_dense(a, device=d),
+                 run=_fmt_run),
+            dict(name="sell_binned_cuda",
+                 prepare=lambda a, d: BinnedSellMatrix.from_dense(a, device=d),
+                 run=_fmt_run),
+            dict(name="bsr_cuda",
+                 prepare=lambda a, d: BsrMatrix.from_dense(a, block_m=512,
+                                                           device=d),
+                 run=_fmt_run),
+            dict(name="tcsr_cuda",
+                 prepare=lambda a, d: TcsrMatrix.from_dense(a, device=d),
+                 run=_fmt_run),
             dict(name="rsell_cuda",
                  prepare=lambda a, d: RsellMatrix.from_dense(a, device=d),
                  run=_fmt_run),
@@ -87,16 +112,17 @@ def registry(full: bool = False) -> list[dict[str, Any]]:
     return entries
 
 
-def sweep(cfg: SpmvConfig | None = None,
-          verbose: bool = True) -> list[BenchResult]:
-    """Time the registered kernels on the configured workload (GPU only)."""
+def sweep(cfg: SpmvConfig | None = None, verbose: bool = True,
+          full: bool = False) -> list[BenchResult]:
+    """Time the registered kernels (``full``: the full registry) on the
+    configured workload (GPU only)."""
     cfg = cfg or SpmvConfig()
     dev = resolve_device(None)
     a, x = _canonical_workload(cfg)
     x_dev = torch.as_tensor(x, device=dev)
     nnz = int((a != 0).sum())
     results = []
-    for e in registry():
+    for e in registry(full=full):
         fmt = e["prepare"](a, dev)
         nbytes = format_bytes(fmt)
         r = device_time(e["run"], fmt, x_dev, name=e["name"],

@@ -16,11 +16,11 @@ were measured on a TPU; re-deriving them on the H100 is later work
   TPU kernel's budget (``wide_fits``), else binned SELL (skew) or TCSR;
 - otherwise SELL, or AWSP when the caller expects structured activations.
 
-``auto_format`` packs ``dia``, ``tcsr``, ``sell``, ``awsp``, ``rsell`` and
-``asp`` into the port's classes (``tcsr`` with the caller's
-``expect_batch``, which moves its tier cutoff). ``binned`` is not ported yet
-and raises ``NotImplementedError``; the router never substitutes another
-format.
+``auto_format`` packs every kind the router can pick into the port's
+classes (``tcsr`` with the caller's ``expect_batch``, which moves its tier
+cutoff). ``NOT_PORTED`` names a kind the port would lack; it is empty, and
+``auto_format`` raises ``NotImplementedError`` for any kind in it rather
+than substituting another format.
 """
 
 from __future__ import annotations
@@ -36,8 +36,8 @@ from tpusparse_torch.utils import resolve_device, round_up
 
 _LANES = 128
 # formats the router can pick that the port does not have yet, and
-# the ROADMAP.md item that ports each
-NOT_PORTED = {"binned": "item 9 (binned SELL)"}
+# the ROADMAP.md item that ports each: none since binned SELL (item 9)
+NOT_PORTED: dict[str, str] = {}
 
 
 def matrix_stats(a) -> dict[str, Any]:
@@ -227,6 +227,7 @@ def auto_format(a, *, expect_structured_x: bool = False,
     ``matrix_stats``/``matrix_stats_csr``. Raises ``NotImplementedError``
     for a format the port does not have yet."""
     from tpusparse_torch.formats.awsp import AwspMatrix
+    from tpusparse_torch.formats.binned import BinnedSellMatrix
     from tpusparse_torch.formats.dia import DiaMatrix
     from tpusparse_torch.formats.rsell import RsellMatrix
     from tpusparse_torch.formats.sell import SellMatrix
@@ -250,6 +251,7 @@ def auto_format(a, *, expect_structured_x: bool = False,
         return TcsrMatrix.from_csr(a, **kw) if is_csr \
             else TcsrMatrix.from_dense(a, **kw)
     cls = {"dia": DiaMatrix, "sell": SellMatrix, "awsp": AwspMatrix,
-           "rsell": RsellMatrix, "asp": AspMatrix}[kind]
+           "rsell": RsellMatrix, "asp": AspMatrix,
+           "binned": BinnedSellMatrix}[kind]
     return cls.from_csr(a, device=device) if is_csr \
         else cls.from_dense(a, device=device)

@@ -1,8 +1,9 @@
 """Weights across: rebuild a JAX-package pack as the port's object.
 
 ``from_reference_arrays`` takes the plain numpy leaves and metadata of a
-``tpusparse`` ``SellMatrix``, ``AwspMatrix``, ``BsrMatrix``, ``TcsrMatrix``
-or ``DiaMatrix`` and returns the port's counterpart on ``device``. It
+``tpusparse`` ``SellMatrix``, ``AwspMatrix``, ``BsrMatrix``, ``TcsrMatrix``,
+``DiaMatrix``, ``EllMatrix``, ``BellMatrix`` or ``BinnedSellMatrix`` and
+returns the port's counterpart on ``device``. It
 imports nothing of the JAX package; whoever holds the JAX object extracts
 the dict:
 
@@ -13,11 +14,17 @@ the dict:
     {"kind": "tcsr", "s_bi", "s_bj", "idx", "vals", "w", "bsr", "shape",
      "padded", "nnz", "n_sell", "n_dense"}
     {"kind": "dia", "offsets", "vals", "shape", "nnz", "sym"}
+    {"kind": "ell", "idx", "val", "shape", "nnz"}
+    {"kind": "bell", "bitmap", "carries", "vals", "shape", "padded",
+     "block_m", "w", "nnz"}
+    {"kind": "binned", "idx" (list, one per bucket), "vals" (list),
+     "inv_perm", "shape", "nnz", "widths"}
 
 ``scales`` is None except for int8 SELL storage; ``g`` is read for AWSP
 only. TCSR's ``bsr`` is the dense tier as a BSR dict (its ``kind`` may be
-left out) or None. bf16 values arrive as a ``uint16`` view of their bits
-(numpy has no bf16 of its own).
+left out) or None. BELL's ``bitmap`` is the uint32 words. Binned SELL's
+unpermute plan is rebuilt from ``inv_perm``. bf16 values arrive as a
+``uint16`` view of their bits (numpy has no bf16 of its own).
 
 ``load_trainable_arrays`` carries trained values the same way: the numpy
 leaves of a JAX ``trainable_linear``'s params (``{"vals", "vals_t"}``) or of
@@ -34,10 +41,14 @@ import numpy as np
 import torch
 
 from tpusparse_torch.formats.awsp import AwspMatrix
+from tpusparse_torch.formats.bell import BellMatrix
+from tpusparse_torch.formats.binned import BinnedSellMatrix
 from tpusparse_torch.formats.bsr import BsrMatrix
 from tpusparse_torch.formats.dia import DiaMatrix
+from tpusparse_torch.formats.ell import EllMatrix
 from tpusparse_torch.formats.sell import SellMatrix
 from tpusparse_torch.formats.tcsr import TcsrMatrix
+from tpusparse_torch.kernels.permute import permute_plan
 from tpusparse_torch.utils import resolve_device
 
 
@@ -57,6 +68,10 @@ _KEYS = {
     "tcsr": ("s_bi", "s_bj", "idx", "vals", "w", "bsr", "shape", "padded",
              "nnz", "n_sell", "n_dense"),
     "dia": ("offsets", "vals", "shape", "nnz", "sym"),
+    "ell": ("idx", "val", "shape", "nnz"),
+    "bell": ("bitmap", "carries", "vals", "shape", "padded", "block_m", "w",
+             "nnz"),
+    "binned": ("idx", "vals", "inv_perm", "shape", "nnz", "widths"),
 }
 
 
@@ -88,8 +103,9 @@ def _bsr(d: dict[str, Any], dev: torch.device) -> BsrMatrix:
 
 def from_reference_arrays(d: dict[str, Any], device=None):
     """JAX-package pack leaves -> ``SellMatrix``, ``AwspMatrix``,
-    ``BsrMatrix``, ``TcsrMatrix`` or ``DiaMatrix`` on ``device`` (None is
-    the GPU)."""
+    ``BsrMatrix``, ``TcsrMatrix``, ``DiaMatrix``, ``EllMatrix``,
+    ``BellMatrix`` or ``BinnedSellMatrix`` on ``device`` (None is the
+    GPU)."""
     dev = resolve_device(device)
     kind = d["kind"]
     _check_keys(kind, d)
@@ -109,6 +125,26 @@ def from_reference_arrays(d: dict[str, Any], device=None):
                          _tensor(d["vals"], np.float32).to(dev),
                          _ints(d["shape"]), int(d["nnz"]),
                          sym=bool(d["sym"]))
+    if kind == "ell":
+        return EllMatrix(_tensor(d["idx"], np.int32).to(dev),
+                         _tensor(d["val"], np.float32).to(dev),
+                         _ints(d["shape"]), int(d["nnz"]))
+    if kind == "bell":
+        bits = np.ascontiguousarray(d["bitmap"], dtype=np.uint32)
+        return BellMatrix(torch.from_numpy(bits.view(np.int32)).to(dev),
+                          _tensor(d["carries"], np.int32).to(dev),
+                          _tensor(d["vals"], np.float32).to(dev),
+                          _ints(d["shape"]), _ints(d["padded"]),
+                          int(d["block_m"]), int(d["w"]), int(d["nnz"]))
+    if kind == "binned":
+        buckets = [{"idx": _tensor(i, np.int8).to(dev),
+                    "vals": _tensor(v, np.float32).to(dev)}
+                   for i, v in zip(d["idx"], d["vals"], strict=True)]
+        inv_perm = np.ascontiguousarray(d["inv_perm"], dtype=np.int32)
+        pp = permute_plan(inv_perm)
+        return BinnedSellMatrix(buckets, inv_perm, (pp["oidx"], pp["oh"]),
+                                _ints(d["shape"]), int(d["nnz"]),
+                                _ints(d["widths"]))
     idx = torch.from_numpy(np.ascontiguousarray(d["idx"], dtype=np.int8))
     vals = _values(d["vals"])
     meta = (tuple(int(s) for s in d["shape"]),

@@ -30,7 +30,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("sell_spmv.cu", "dense.cu", "awsp_spmv.cu", "rsell_spmv.cu",
            "permute.cu", "asp_spmv.cu", "bsr_spmv.cu", "bsell_spmv.cu",
-           "dia_spmv.cu", "sell_grad.cu")
+           "dia_spmv.cu", "sell_grad.cu", "bell_spmv.cu",
+           "sell_mxu_spmm.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
@@ -62,6 +63,12 @@ _SIGNATURES = {
     "tps_dia_spmv": [_P] * 4 + [_I] * 5 + [_P],
     # idx_signed, x, g, out, nb, nt, w, batch, ldx, ldg, device, stream
     "tps_sell_dvals": [_P] * 4 + [_I] * 7 + [_P],
+    # bitmap, vals, x, part, y, nb, mb, block_m, w, batch, ldx, slices,
+    # per_slice, n, device, stream
+    "tps_bell_spmm": [_P] * 5 + [_I] * 10 + [_P],
+    # idx, vals, x, part, y, nb, nt, w, batch, ldx, slices, per_slice, n,
+    # device, stream
+    "tps_sell_mxu_spmm": [_P] * 5 + [_I] * 9 + [_P],
 }
 
 

@@ -2,8 +2,9 @@
 
 ``a`` is a dense array (numpy or tensor) or a compute format
 (``SellMatrix``, ``AwspMatrix``, ``RsellMatrix``, ``AspMatrix``,
-``BsrMatrix``, ``TcsrMatrix``, ``DiaMatrix``, or whichever ``auto_format``
-picks); each format carries its kernels. Dense
+``BsrMatrix``, ``TcsrMatrix``, ``DiaMatrix``, ``EllMatrix``,
+``BellMatrix``, ``BinnedSellMatrix``, or whichever ``auto_format`` picks);
+each format carries its kernels. Dense
 arrays go to ``dense_torch``. ``CsrMatrix`` is interchange-only and is
 rejected: pack it first.
 """

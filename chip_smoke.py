@@ -17,7 +17,9 @@ seed 0) for B = 1 and B = 8:
 2. holds each kernel against its plain PyTorch version on the card and
    against the float64 oracle (atol 1e-3), and times kernel, plain version,
    and one library call (cuSPARSE CSR for K1/K3, cuBLAS for K2) with CUDA
-   events after an L2 flush;
+   events after an L2 flush; K2 is one launch a call, its rows streamed
+   through a cp.async ring and its split-K sum fused (the last block of
+   each column group adds the slices in a fixed order);
 3. runs AWSP on a structured X (a quarter of the 128-row windows live, g = 1)
    through the device plan under ``torch.cuda.set_sync_debug_mode("error")``,
    plus an all-zero X;
@@ -97,9 +99,13 @@ and then the JAX package's full bench registry and its floors study:
     which must now pack ``BinnedSellMatrix``;
 15. the floors study (``tpusparse_torch.bench.report``: 4096^2, d in
     {0.1, 0.5}, B in {1, 8, 32}): K11 against its plain version and the
-    oracle at every point and on a pad-collision matrix (row 0 all ones),
-    then K11, K1, cuBLAS and cuSPARSE timed at every point, K11's launches
-    counted over the timed study alone.
+    oracle at every point, on a pad-collision matrix (row 0 all ones) at
+    B = 1, 32 and 40 (two batch tiles), and on a CSR with repeated entries
+    (the kernel's fallback from stores to adds), then K11, K1, cuBLAS and
+    cuSPARSE timed at every point beside K11's tensor-core floor, K11's
+    launches counted over the timed study alone. K11 is one launch a call:
+    bulk-copied tiles, a store scatter into shared memory, 3xTF32
+    ``mma.sync`` on the tensor cores and the fused split-K sum.
 
 Kernel against plain version: atol 1e-4 (the same products summed in
 another order); against the float64 oracle: atol 1e-3 (the repo's
@@ -1076,6 +1082,18 @@ def check_binned(a_s, x1_s, x8_s, dev) -> None:
     require(err <= ATOL, "binned route disagrees with the oracle")
 
 
+def repeated_entries_csr() -> CsrMatrix:
+    """A 4096^2 CsrMatrix, d ~ 0.1, built from COO triplets of which 2% are
+    repeats (from_coo keeps them; the SELL pack gives each its own slot)."""
+    rng = np.random.default_rng(62)
+    nnz = 1_600_000
+    rows = rng.integers(0, 4096, nnz)
+    cols = rng.integers(0, 4096, nnz)
+    rows[:32_000], cols[:32_000] = rows[-32_000:], cols[-32_000:]
+    vals = rng.uniform(-1, 1, nnz).astype(np.float32)
+    return CsrMatrix.from_coo(4096, 4096, rows, cols, vals)
+
+
 def floors_study(dev) -> tuple[list[dict], dict]:
     """Phase 15: K11 checked at every floors point and on a pad-collision
     matrix, then the timed study, K11's launches counted over it alone.
@@ -1087,9 +1105,13 @@ def floors_study(dev) -> tuple[list[dict], dict]:
     bait = generators.random_sparse_matrix(4096, 4096, density=0.1, seed=61)
     bait[0, :] = 1.0           # every column has an offset-0 entry
     bait_sell = SellMatrix.from_dense(bait, device=dev)
-    for batch in (1, 32):
+    for batch in (1, 32, 40):
         x = generators.random_sparse_batch(batch, 4096, 0.5, seed=61)
         errs["pad collision", batch] = report.check_mxu(bait_sell, x, bait)
+    dup = repeated_entries_csr()
+    x = generators.random_sparse_batch(8, dup.shape[0], 0.5, seed=62)
+    errs["repeated entries", 8] = report.check_mxu(
+        SellMatrix.from_csr(dup, device=dev), x, dup.to_dense())
     for key, (e_plain, e_ref) in errs.items():
         print(f"   K11 {key}: |k-plain|={e_plain:.3e} |k-oracle|={e_ref:.3e}")
     torch.cuda.synchronize()
@@ -1112,8 +1134,8 @@ def floors_study(dev) -> tuple[list[dict], dict]:
                            warmup=1, reps=5).seconds * 1e3
     print(f"sell_mxu_spmm d={FLOORS_HEAD[0]} B={FLOORS_HEAD[1]}: "
           f"{head['mxu_ms'] * 1e3:.2f} us, bound {head['bound_ms'] * 1e3:.2f} "
-          f"us ({head['bound_by']}), dense-work floor "
-          f"{head['mxu_design_ms'] * 1e3:.2f} us, share "
+          f"us ({head['bound_by']}), tensor-core floor (3xTF32) "
+          f"{head['mxu_tc_floor_ms'] * 1e3:.2f} us, share "
           f"{head['mxu_share']:.3f} | plain {plain_ms * 1e3:.2f} us | "
           f"library {head['cusparse_ms'] * 1e3:.2f} us; launches {k11}")
     row = {"name": "sell_mxu_spmm", "route": "cuda",

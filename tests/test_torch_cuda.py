@@ -14,6 +14,12 @@ This file imports no JAX and nothing from tests/conftest.py.
 
 Tolerance: 1e-4 between kernel and plain version (same products, summed in
 another order), 1e-3 against the float64 oracle (the repo's contract).
+
+K2 and K11 sum their split contraction inside the one kernel: their tests
+also check that two calls give the same bits, that calls on two streams
+and calls after calls of another shape still match, that a call is one
+CUDA kernel, and (with ``cuobjdump``) that K11 multiplies in 3xTF32 on the
+tensor cores and K2 copies asynchronously.
 """
 
 import functools
@@ -113,6 +119,191 @@ def test_dense_kernel(cuda, size, batch):
     _close(y, dense_plain(at, xt), 1e-4)
     _close(y, y_ref, 1e-3)
     _close(dense_cuda(at, xt[0]), y_ref[0], 1e-3)
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("m,n,offset", [(300, 100, 0), (4099, 4096, 0),
+                                        (1000, 520, 1), (37, 4096, 0)])
+def test_dense_kernel_edges(cuda, m, n, offset, batch):
+    """K2 at n < 128, at an m that does not divide into the slices or into
+    16-row stages, with A one float off 16-byte alignment (the masked
+    copies), and with fewer rows than one slice."""
+    a = generators.random_sparse_matrix(m, n, density=0.5, seed=7)
+    x = generators.random_sparse_batch(batch, m, 0.5, seed=7)
+    buf = torch.empty(m * n + offset, dtype=torch.float32, device=cuda)
+    at = buf[offset:].view(m, n)
+    at.copy_(torch.from_numpy(a))
+    assert (at.data_ptr() % 16 == 0) == (offset == 0)
+    xt = torch.from_numpy(x).to(cuda)
+    y = dense_cuda(at, xt)
+    torch.cuda.synchronize()
+    _close(y, dense_plain(at, xt), 1e-4)
+    _close(y, reference.sgemm_cpu(x, a), 1e-3)
+
+
+def _fused_cases(dev):
+    """K2 and K11 at two shapes each: (name, call) pairs, the call
+    returning the kernel's output and its plain version's."""
+    cases = []
+    for m, n, batch in ((4096, 4096, 8), (200, 300, 3)):
+        a = generators.random_sparse_matrix(m, n, density=0.3, seed=m)
+        x = generators.random_sparse_batch(batch, m, 0.5, seed=m)
+        at, xt = torch.from_numpy(a).to(dev), torch.from_numpy(x).to(dev)
+        f = SellMatrix.from_dense(a, device=dev)
+        cases.append((f"dense {m}x{n}", lambda at=at, xt=xt: (
+            dense_cuda(at, xt), dense_plain(at, xt))))
+        cases.append((f"mxu {m}x{n}", lambda f=f, xt=xt, n=n: (
+            sell_mxu_spmm(f.idx, f.vals, xt, n=n),
+            sell_mxu_spmm_plain(f.idx, f.vals, xt, n=n))))
+    return cases
+
+
+def test_fused_reduce_is_deterministic_and_resets(cuda):
+    """K2 and K11 sum their slices in the kernel: two calls back to back
+    give the same bits, and a call after a call of another shape still
+    matches (the arrival counters are back at 0)."""
+    cases = _fused_cases(cuda)
+    first = {}
+    for name, call in cases + cases:         # each shape after the others
+        y, yp = call()
+        torch.cuda.synchronize()
+        _close(y, yp, 1e-4)
+        if name in first:
+            assert torch.equal(y, first[name]), name
+        first[name] = y
+        y2, _ = call()
+        assert torch.equal(y, y2), name
+
+
+def test_fused_reduce_on_two_streams(cuda):
+    """Calls in flight on two streams each count on their own counters."""
+    cases = _fused_cases(cuda)
+    want = {name: call() for name, call in cases}
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = {}
+    for rep in range(3):
+        for k, (name, call) in enumerate(cases):
+            with torch.cuda.stream(streams[k % 2]):
+                got[name, rep] = call()[0]
+    torch.cuda.synchronize()
+    for (name, rep), y in got.items():
+        assert torch.equal(y, want[name][0]), (name, rep)
+
+
+def test_one_kernel_per_call(cuda):
+    """torch.profiler sees exactly one CUDA kernel per K2 and per K11 call
+    (the plain versions are not called here)."""
+    a, x, _ = _workload("full", 8)
+    at, xt = torch.from_numpy(a).to(cuda), torch.from_numpy(x).to(cuda)
+    f = SellMatrix.from_dense(a, device=cuda)
+    calls = {"dense": lambda: dense_cuda(at, xt),
+             "mxu": lambda: sell_mxu_spmm(f.idx, f.vals, xt, n=4096)}
+    for name, call in calls.items():
+        call()                               # counters allocated, warm
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 3, (name, [e.name for e in kernels])
+
+
+def test_sell_mxu_all_zero_matrix(cuda):
+    """Every slot a pad (index 0, value 0): the stored tile stays zero."""
+    a = np.zeros((384, 256), np.float32)
+    f = SellMatrix.from_dense(a, device=cuda)
+    assert f.w == 8
+    x = generators.random_sparse_batch(5, 384, 0.5, seed=3)
+    y = sell_mxu_spmm(f.idx, f.vals, torch.from_numpy(x).to(cuda), n=256)
+    torch.cuda.synchronize()
+    assert y.shape == (5, 256) and int(torch.count_nonzero(y)) == 0
+
+
+@pytest.mark.parametrize("batch", [1, 40])
+def test_sell_mxu_duplicate_entries(cuda, batch):
+    """A CsrMatrix built with repeated (row, column) entries packs them into
+    separate slots with one offset: K11 must add them, as the plain
+    version does."""
+    rng = np.random.default_rng(5)
+    m, n, nnz = 300, 260, 6000
+    rows, cols = rng.integers(0, m, nnz), rng.integers(0, n, nnz)
+    rows[:400], cols[:400] = rows[400:800], cols[400:800]   # repeats
+    rows[:50], cols[:50] = rows[800:850], cols[800:850]     # and triples
+    vals = rng.uniform(-1, 1, nnz).astype(np.float32)
+    vals[:30] = vals[800:830]                               # equal values
+    csr = CsrMatrix.from_coo(m, n, rows, cols, vals)
+    f = SellMatrix.from_csr(csr, device=cuda)
+    x = generators.random_sparse_batch(batch, m, 0.5, seed=5)
+    xt = torch.from_numpy(x).to(cuda)
+    y = sell_mxu_spmm(f.idx, f.vals, xt, n=n)
+    torch.cuda.synchronize()
+    _close(y, sell_mxu_spmm_plain(f.idx, f.vals, xt, n=n), 1e-4)
+    _close(y, reference.sgemm_cpu(x, csr.to_dense()), 1e-3)
+
+
+@pytest.mark.parametrize("batch", [1, 40])
+def test_sell_mxu_dense_windows(cuda, batch):
+    """A fully dense matrix packs W = 128: two stages of slabs no longer fit
+    beside the dense tile, and the kernel runs with one."""
+    a = generators.random_sparse_matrix(512, 384, density=1.0, seed=4)
+    f = SellMatrix.from_dense(a, device=cuda)
+    assert f.w == 128
+    x = generators.random_sparse_batch(batch, 512, 0.5, seed=4)
+    xt = torch.from_numpy(x).to(cuda)
+    y = sell_mxu_spmm(f.idx, f.vals, xt, n=384)
+    torch.cuda.synchronize()
+    _close(y, sell_mxu_spmm_plain(f.idx, f.vals, xt, n=384), 1e-4)
+    _close(y, reference.sgemm_cpu(x, a), 1e-3)
+
+
+def test_sell_mxu_refuses_unaligned_slabs(cuda):
+    a = generators.random_sparse_matrix(256, 256, density=0.2, seed=3)
+    f = SellMatrix.from_dense(a, device=cuda)
+    buf = torch.empty(f.vals.numel() + 1, dtype=torch.float32, device=cuda)
+    vals = buf[1:].view(f.vals.shape)
+    vals.copy_(f.vals)
+    x = torch.ones((1, 256), device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        sell_mxu_spmm(f.idx, vals, x)
+
+
+def _sass_by_function(lib_path):
+    """{kernel name: its SASS text} of a built library, via cuobjdump."""
+    import shutil
+    import subprocess
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib_path)], check=True,
+                         capture_output=True, text=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+def test_sass_holds_tensor_cores_and_async_copies(cuda):
+    """K11's compiled code multiplies on the tensor cores in TF32, three
+    products a step (3xTF32, no single-pass path); K2's streams A with
+    asynchronous copies (LDGSTS)."""
+    from tpusparse_torch.kernels import _build
+    sass = _sass_by_function(_build.build())
+    mxu = {k: v for k, v in sass.items() if "sell_mxu_kernel" in k}
+    dense = {k: v for k, v in sass.items() if "dense_kernel" in k}
+    assert len(mxu) == 3 and len(dense) == 8, sorted(sass)
+    for name, text in mxu.items():
+        hmma = [ln for ln in text.splitlines() if "HMMA" in ln]
+        assert hmma and all("TF32" in ln for ln in hmma), name
+        assert len(hmma) % 3 == 0, (name, len(hmma))
+        assert "UBLKCP" in text, name
+    for name, text in dense.items():
+        assert "LDGSTS" in text or "UBLKCP" in text, name
 
 
 @pytest.mark.parametrize("g", [1, 8])

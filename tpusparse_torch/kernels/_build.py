@@ -43,8 +43,9 @@ _SIGNATURES = {
     # plan, count, idx, vals, vals_kind, x, part, y, nb, ntot, g, plan_len,
     # w, batch, ldx, slices, per_slice, n, device, stream
     "tps_awsp_spmm": [_P, _P, _P, _P, _I, _P, _P, _P] + [_I] * 11 + [_P],
-    # a, x, part, y, m, n, batch, slices, per_slice, device, stream
-    "tps_dense_spmm": [_P, _P, _P, _P] + [_I] * 6 + [_P],
+    # a, x, part, y, counters, m, n, batch, slices, per_slice, device,
+    # stream
+    "tps_dense_spmm": [_P] * 5 + [_I] * 6 + [_P],
     # items, gptr, ct, idx, vals, x, part, y, nitems, batch, ldx, n,
     # device, stream
     "tps_rsell_spmm": [_P] * 8 + [_I] * 5 + [_P],
@@ -66,9 +67,9 @@ _SIGNATURES = {
     # bitmap, vals, x, part, y, nb, mb, block_m, w, batch, ldx, slices,
     # per_slice, n, device, stream
     "tps_bell_spmm": [_P] * 5 + [_I] * 10 + [_P],
-    # idx, vals, x, part, y, nb, nt, w, batch, ldx, slices, per_slice, n,
-    # device, stream
-    "tps_sell_mxu_spmm": [_P] * 5 + [_I] * 9 + [_P],
+    # idx, vals, x, part, y, counters, nb, nt, w, batch, ldx, slices,
+    # per_slice, n, device, stream
+    "tps_sell_mxu_spmm": [_P] * 6 + [_I] * 9 + [_P],
 }
 
 
@@ -160,9 +161,42 @@ def split_work(units: int, blocks: int, device: torch.device) -> tuple[int, int]
     """(per_slice, slices): cut ``units`` (windows, plan items or rows) into
     slices so that ``blocks`` x slices blocks fill the card about eight
     blocks per SM deep."""
-    want = max(1, min(units, cdiv(8 * _sm_count(device.index), max(blocks, 1))))
+    want = max(1, min(units, cdiv(8 * sm_count(device), max(blocks, 1))))
     per = max(1, cdiv(units, want))
     return per, max(1, cdiv(units, per))
+
+
+def sm_count(device: torch.device) -> int:
+    return _sm_count(device.index)
+
+
+def launch_shape(units: int, groups: int, slots: int,
+                 quantum: int = 1) -> tuple[int, int]:
+    """(per_slice, slices) for a kernel whose blocks each own one of
+    ``groups`` (column group, batch tile) pairs and a contiguous run of
+    ``units`` (windows or rows): the most slices, each a multiple of
+    ``quantum`` units, for which ``groups`` x slices blocks fit the card's
+    ``slots`` resident blocks in one wave. Slice k covers units
+    [k * per_slice, min(units, (k + 1) * per_slice)): every unit once."""
+    want = max(1, min(cdiv(units, quantum), slots // max(groups, 1)))
+    per = max(quantum, cdiv(cdiv(units, want), quantum) * quantum)
+    return per, max(1, cdiv(units, per))
+
+
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def arrival_counters(device: torch.device, count: int) -> torch.Tensor:
+    """The int32 arrival counters of the fused split reduce
+    (``csrc/split_reduce.cuh``) for the current stream of ``device``: at
+    least ``count``, all 0 between calls. Allocated and zeroed once per
+    (device, stream), and again only to grow; every call leaves them at 0."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    have = _COUNTERS.get(key)
+    if have is None or have.numel() < count:
+        have = torch.zeros(max(count, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[key] = have
+    return have
 
 
 def require_cuda(name: str, *tensors: torch.Tensor,

@@ -19,7 +19,9 @@ seed 0) for B = 1 and B = 8:
    and one library call (cuSPARSE CSR for K1/K3, cuBLAS for K2) with CUDA
    events after an L2 flush; K2 is one launch a call, its rows streamed
    through a cp.async ring and its split-K sum fused (the last block of
-   each column group adds the slices in a fixed order);
+   each column group adds the slices in a fixed order); K1 runs its
+   128-thread body here (up to 8 batch rows; from 9 rows a ring of
+   bulk-copied tiles reads the pack once for every 32 rows, phase 15);
 3. runs AWSP on a structured X (a quarter of the 128-row windows live, g = 1)
    through the device plan under ``torch.cuda.set_sync_debug_mode("error")``,
    plus an all-zero X;
@@ -92,7 +94,9 @@ and then the JAX package's full bench registry and its floors study:
     K12, ``sell_binned_cuda`` K1 and K5, ``bsr_cuda`` K6, ``tcsr_cuda`` K7
     and/or K6, ``rsell_cuda`` K4, ``asp_cuda`` K9, and ``ell_torch`` none;
 14. holds K12 at B = 1 and 8 against its plain version and the oracle,
-    timed beside its plain version and cuSPARSE CSR; a small BELL at
+    timed beside its plain version and cuSPARSE CSR (one launch a call: a
+    column's bitmap decoded once into a list of its live positions, then
+    only live values multiplied, for every batch row); a small BELL at
     block_m 128 and 256; ``BinnedSellMatrix`` built on the skew matrix
     (K1 once per bucket and K5 once a call, against the oracle); and
     ``auto_format`` on the router test's skewed 65536^2 CSR at B = 48,
@@ -101,15 +105,19 @@ and then the JAX package's full bench registry and its floors study:
     {0.1, 0.5}, B in {1, 8, 32}): K11 against its plain version and the
     oracle at every point, on a pad-collision matrix (row 0 all ones) at
     B = 1, 32 and 40 (two batch tiles), and on a CSR with repeated entries
-    (the kernel's fallback from stores to adds), then K11, K1, cuBLAS and
+    (the kernel's fallback from stores to adds), K1's ring kernel against
+    its plain version and the oracle at B = 32 and 40, then K11, K1, cuBLAS and
     cuSPARSE timed at every point beside K11's tensor-core floor, K11's
-    launches counted over the timed study alone. K11 is one launch a call:
+    and K1's launches counted over the timed study alone. K11 is one
+    launch a call:
     bulk-copied tiles, a store scatter into shared memory, 3xTF32
     ``mma.sync`` on the tensor cores and the fused split-K sum.
 
 Kernel against plain version: atol 1e-4 (the same products summed in
 another order); against the float64 oracle: atol 1e-3 (the repo's
-contract). It prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+contract). It prints each kernel's launches summed over the counted runs
+of all the paths above (also ``launches_all_paths`` in its row), one
+``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises, so the
 exit code is not 0 and no result line is printed. With no CUDA device it
 exits with code 2 before doing anything.
@@ -265,6 +273,7 @@ def main_path() -> dict[str, int]:
             print(f"   {rep.name}: {t.seconds * 1e6:.2f} us, "
                   f"{t.nnz_per_s / 1e9:.3f} Gnnz/s, roofline {share:.3f}")
     launches = {name: w.launches for name, w in WRAPPERS.items()}
+    tally(launches)
     print("launches on the headline path:", json.dumps(launches))
     for name, n in launches.items():
         require(n > 0, f"{name}: no launch on the headline path")
@@ -485,6 +494,7 @@ def skew_path(a, x1, x8, dev) -> tuple[RsellMatrix, AspMatrix, dict]:
     y8 = spmm(asp, x8t)                # CUDA tensor -> ASP device plan
     torch.cuda.synchronize()
     launches = {name: w.launches for name, w in SKEW_WRAPPERS.items()}
+    tally(launches)
     print("launches on the skew path:", json.dumps(launches))
     for name, k in launches.items():
         require(k > 0, f"{name}: no launch on the skew path")
@@ -557,6 +567,15 @@ def check_rsell_bodies(dev) -> None:
                     f"rsell {what}: {permuted} K5 launches")
 
 
+# each kernel's launches summed over the counted runs of every path
+TOTALS = dict.fromkeys(ALL_WRAPPERS, 0)
+
+
+def tally(counts: dict[str, int]) -> None:
+    for name, k in counts.items():
+        TOTALS[name] += k
+
+
 def zero_counts() -> None:
     for w in ALL_WRAPPERS.values():
         w.launches = 0
@@ -597,6 +616,7 @@ def block_path(a, x1, x8, dev) -> tuple[TcsrMatrix, TcsrMatrix, dict]:
     y8 = spmm(f8, x8t)
     torch.cuda.synchronize()
     launches = read_counts(BLOCK_WRAPPERS)
+    tally(launches)
     print("launches on the block-structured path:", json.dumps(launches))
     for name, k in launches.items():
         require(k > 0, f"{name}: no launch on the block-structured path")
@@ -653,6 +673,7 @@ def banded_path(csr, x1, x8, dev) -> tuple[DiaMatrix, dict]:
     y1 = spmv(d, x1t)
     torch.cuda.synchronize()
     launches = read_counts(BANDED_WRAPPERS)
+    tally(launches)
     y8 = spmm(d, x8t)                  # the shifted torch form, no kernel
     torch.cuda.synchronize()
     print("launches on the banded path:", json.dumps(launches))
@@ -795,6 +816,7 @@ def training_path(csr, a, dev):
         apply(params, xt).backward(gt)
         torch.cuda.synchronize()
         counts = read_counts(TRAIN_WRAPPERS)
+        tally(counts)
         print(f"   B={batch} backward launches: {json.dumps(counts)}")
         require(counts == {"sell_spmv": 2, "sell_grad": 2},
                 f"B={batch}: K1 x2 and K10 x2 expected, got {counts}")
@@ -847,6 +869,7 @@ def training_run(csr, dev) -> int:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         counts = read_counts(TRAIN_WRAPPERS)
+        tally(counts)
         require(counts == {"sell_spmv": 1, "sell_grad": 2},
                 f"training step: K1 x1 and K10 x2 expected, got {counts}")
         k10 += counts["sell_grad"]
@@ -976,7 +999,9 @@ def full_registry_path() -> dict[str, dict[str, int]]:
             zero_counts()
             rep = tester.check(entry, time_it=True)
             torch.cuda.synchronize()
-            for k, v in read_counts(ALL_WRAPPERS).items():
+            entry_counts = read_counts(ALL_WRAPPERS)
+            tally(entry_counts)
+            for k, v in entry_counts.items():
                 counts[e["name"]][k] += v
             require(rep.ok, f"{e['name']} B={batch}: {rep}")
             t = rep.timing
@@ -1052,6 +1077,7 @@ def check_binned(a_s, x1_s, x8_s, dev) -> None:
         y = spmv(f, xt) if x.ndim == 1 else spmm(f, xt)
         torch.cuda.synchronize()
         counts = read_counts(("sell_spmv", "permute"))
+        tally(counts)
         want = reference.sgemv_cpu(x, a_s) if x.ndim == 1 \
             else reference.sgemm_cpu(x, a_s)
         err = max_err(y, want)
@@ -1114,11 +1140,26 @@ def floors_study(dev) -> tuple[list[dict], dict]:
         SellMatrix.from_csr(dup, device=dev), x, dup.to_dense())
     for key, (e_plain, e_ref) in errs.items():
         print(f"   K11 {key}: |k-plain|={e_plain:.3e} |k-oracle|={e_ref:.3e}")
+    for wl in loads:           # K1's ring kernel (from 9 rows) at B = 32 and 40
+        s = wl["sell"]
+        for batch in (32, 40):
+            x = report.grid_batch(batch) if batch == 32 else \
+                generators.random_sparse_batch(batch, 4096, 0.5, seed=63)
+            xt = torch.from_numpy(x).to(dev)
+            yk = sell_spmm(s.idx, s.vals, xt, n=4096)
+            e_plain = max_err(yk, sell_spmm_plain(s.idx, s.vals, xt, n=4096))
+            e_ref = max_err(yk, reference.sgemm_cpu(x, wl["a"]))
+            print(f"   K1 d={wl['density']} B={batch}: |k-plain|={e_plain:.3e} "
+                  f"|k-oracle|={e_ref:.3e}")
+            require(e_plain <= PLAIN_ATOL and e_ref <= ATOL,
+                    f"K1 d={wl['density']} B={batch} disagrees")
     torch.cuda.synchronize()
     zero_counts()
     rows = report.floors(loads=loads, device=dev, check=False)
     torch.cuda.synchronize()
-    k11 = read_counts(("sell_mxu_spmm",))["sell_mxu_spmm"]
+    study = read_counts(("sell_mxu_spmm", "sell_spmv"))
+    tally(study)
+    k11 = study["sell_mxu_spmm"]
     require(k11 > 0, "sell_mxu_spmm: no launch in the floors study")
     for r in rows:
         share = r["bound_ms"] / r["mxu_ms"]
@@ -1250,6 +1291,9 @@ def main() -> int:
         kernel_rows(bell_results, full_launches["bell_cuda"], {}) + \
         [k11_row]
     require(len(kernels) == 12, f"{len(kernels)} kernel rows, want 12")
+    for row in kernels:
+        row["launches_all_paths"] = TOTALS[row["name"]]
+    print("launches summed over all paths:", json.dumps(TOTALS))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card["line"])

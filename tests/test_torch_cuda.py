@@ -15,14 +15,19 @@ This file imports no JAX and nothing from tests/conftest.py.
 Tolerance: 1e-4 between kernel and plain version (same products, summed in
 another order), 1e-3 against the float64 oracle (the repo's contract).
 
-K2 and K11 sum their split contraction inside the one kernel: their tests
-also check that two calls give the same bits, that calls on two streams
-and calls after calls of another shape still match, that a call is one
-CUDA kernel, and (with ``cuobjdump``) that K11 multiplies in 3xTF32 on the
-tensor cores and K2 copies asynchronously.
+K2, K11 and K12 sum their split contraction inside the one kernel: their
+tests also check that two calls give the same bits, that calls on two
+streams and calls after calls of another shape still match, that a call is
+one CUDA kernel, and (with ``cuobjdump``) that K11 multiplies in 3xTF32 on
+the tensor cores, K2 and K12 copy asynchronously and K1's ring kernel
+bulk-copies its tiles. K1 (every batch size from 1 to 40, its storage
+lanes, x narrower than the rows, one window, W = 8) and K12 (every
+block_m it takes, W up to 1024, empty and full columns) are also held to
+the same bits on two calls.
 """
 
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -35,6 +40,7 @@ from tpusparse_torch.formats import (AspMatrix, AwspMatrix, BellMatrix,
                                      DiaMatrix, RsellMatrix, SellMatrix,
                                      TcsrMatrix)
 from tpusparse_torch.formats import tcsr as tcsr_mod
+from tpusparse_torch.formats.bell import _mask_to_words
 from tpusparse_torch.kernels.asp_spmv import asp_spmm, asp_spmm_plain
 from tpusparse_torch.kernels.awsp_spmv import (awsp_spmm, awsp_spmm_plain,
                                                device_group_plan)
@@ -109,6 +115,93 @@ def test_sell_kernel_storage_lanes(cuda, lane):
                               n=f.shape[1]), 1e-4)
 
 
+# K1 shapes: (m, n, density). "unaligned": n off the 128 grid and x
+# narrower than the packed rows; "nt1": one window; "tinyw": W = 8.
+K1_CASES = {"full": (4096, 4096, 0.5), "small": (256, 384, 0.5),
+            "unaligned": (200, 300, 0.5), "nt1": (100, 300, 0.5),
+            "tinyw": (256, 384, 0.01)}
+
+
+def _twice(call):
+    """Two calls of a kernel: its output, after checking both give the same
+    bits."""
+    y = call()
+    y2 = call()
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2)
+    return y
+
+
+@pytest.mark.parametrize("batch", [1, 2, 3, 8, 9, 32, 40])
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_sell_kernel_whole_batch(cuda, case, batch):
+    """K1 reads the pack once for up to 32 batch rows (B = 40: two blocks
+    down the batch), at every edge of its layout; deterministic."""
+    m, n, d = K1_CASES[case]
+    a = generators.random_sparse_matrix(m, n, density=d, seed=batch)
+    x = generators.random_sparse_batch(batch, m, 0.5, seed=batch)
+    f = SellMatrix.from_dense(a, device=cuda)
+    if case == "tinyw":
+        assert f.w == 8
+    if case == "nt1":
+        assert f.idx.shape[1] == 1
+    xt = torch.from_numpy(x).to(cuda)
+    y = _twice(lambda: sell_spmm(f.idx, f.vals, xt, n=n))
+    _close(y, sell_spmm_plain(f.idx, f.vals, xt, n=n), 1e-4)
+    _close(y, reference.sgemm_cpu(x, a), 1e-3)
+
+
+@pytest.mark.parametrize("batch", [1, 9, 32])
+@pytest.mark.parametrize("lane", ["bfloat16", "int8"])
+def test_sell_kernel_storage_lanes_whole_batch(cuda, lane, batch):
+    """The bf16 and int8 lanes (int8 scales applied after the fused sum),
+    against the plain version and the float64 product of the stored A."""
+    a = generators.random_sparse_matrix(300, 260, density=0.5, seed=batch)
+    f = SellMatrix.from_dense(a, dtype=torch.bfloat16 if lane == "bfloat16"
+                              else "int8", device=cuda)
+    x = generators.random_sparse_batch(batch, 300, 0.5, seed=batch)
+    xt = torch.from_numpy(x).to(cuda)
+    y = _twice(lambda: sell_spmm(f.idx, f.vals, xt, scales=f.scales, n=260))
+    _close(y, sell_spmm_plain(f.idx, f.vals, xt, scales=f.scales, n=260),
+           1e-4)
+    _close(y, reference.sgemm_cpu(x, f.to_dense().float().numpy()), 1e-3)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 9, 32])
+@pytest.mark.parametrize("block_m", [32, 128, 256, 512, 1024])
+def test_bell_kernel_live_values(cuda, block_m, batch):
+    """K12 at every block_m it takes, with an all-empty and an all-full
+    column (so W is block_m rounded up to 128: 1024 at block_m 1024);
+    deterministic."""
+    a = generators.random_sparse_matrix(2048, 384, density=0.5, seed=block_m)
+    a[:, 5] = 0.0
+    a[:, 7] = np.random.default_rng(7).uniform(0.5, 1.0, 2048)
+    bitmap, vals = _bell_arrays(a, block_m, cuda)
+    assert vals.shape[-1] == block_m          # W: the full column's count
+    x = generators.random_sparse_batch(batch, 2048, 0.5, seed=batch)
+    xt = torch.from_numpy(x).to(cuda)
+    y = _twice(lambda: bell_spmm(bitmap, vals, xt, block_m=block_m, n=384))
+    _close(y, bell_spmm_plain(bitmap, vals, xt, block_m=block_m, n=384),
+           1e-4)
+    _close(y, reference.sgemm_cpu(x, a), 1e-3)
+
+
+def _bell_arrays(a, block_m, dev):
+    """K12's bitmap and values for A (m a multiple of block_m, n of 128) at
+    any block_m (the BELL packer takes multiples of 128), W the largest
+    count: the packer's layout."""
+    m, n = a.shape
+    t = a.reshape(m // block_m, block_m, n // 128, 128).transpose(2, 0, 3, 1)
+    mask = t != 0
+    w = int(mask.sum(axis=-1).max())
+    vals = np.zeros(t.shape[:-1] + (w,), np.float32)
+    jj, ii, rr, _ = np.nonzero(mask)
+    vals[jj, ii, rr, (np.cumsum(mask, axis=-1) - mask)[mask]] = t[mask]
+    words = _mask_to_words(mask, block_m).view(np.int32)
+    return (torch.from_numpy(np.ascontiguousarray(words)).to(dev),
+            torch.from_numpy(vals).to(dev))
+
+
 @pytest.mark.parametrize("batch", [1, 3, 8])
 @pytest.mark.parametrize("size", list(SIZES))
 def test_dense_kernel(cuda, size, batch):
@@ -142,7 +235,7 @@ def test_dense_kernel_edges(cuda, m, n, offset, batch):
 
 
 def _fused_cases(dev):
-    """K2 and K11 at two shapes each: (name, call) pairs, the call
+    """K1, K2, K11 and K12 at two shapes each: (name, call) pairs, the call
     returning the kernel's output and its plain version's."""
     cases = []
     for m, n, batch in ((4096, 4096, 8), (200, 300, 3)):
@@ -155,13 +248,20 @@ def _fused_cases(dev):
         cases.append((f"mxu {m}x{n}", lambda f=f, xt=xt, n=n: (
             sell_mxu_spmm(f.idx, f.vals, xt, n=n),
             sell_mxu_spmm_plain(f.idx, f.vals, xt, n=n))))
+        cases.append((f"sell {m}x{n}", lambda f=f, xt=xt, n=n: (
+            sell_spmm(f.idx, f.vals, xt, n=n),
+            sell_spmm_plain(f.idx, f.vals, xt, n=n))))
+        g = BellMatrix.from_dense(a, device=dev)
+        cases.append((f"bell {m}x{n}", lambda g=g, xt=xt, n=n: (
+            bell_spmm(g.bitmap, g.vals, xt, block_m=g.block_m, n=n),
+            bell_spmm_plain(g.bitmap, g.vals, xt, block_m=g.block_m, n=n))))
     return cases
 
 
 def test_fused_reduce_is_deterministic_and_resets(cuda):
-    """K2 and K11 sum their slices in the kernel: two calls back to back
-    give the same bits, and a call after a call of another shape still
-    matches (the arrival counters are back at 0)."""
+    """K2, K11 and K12 sum their slices in the kernel (K1 in a reduce pass):
+    two calls back to back give the same bits, and a call after a call of
+    another shape still matches (the arrival counters are back at 0)."""
     cases = _fused_cases(cuda)
     first = {}
     for name, call in cases + cases:         # each shape after the others
@@ -192,13 +292,16 @@ def test_fused_reduce_on_two_streams(cuda):
 
 
 def test_one_kernel_per_call(cuda):
-    """torch.profiler sees exactly one CUDA kernel per K2 and per K11 call
+    """torch.profiler sees exactly one CUDA kernel per K2, K11 and K12 call
     (the plain versions are not called here)."""
     a, x, _ = _workload("full", 8)
     at, xt = torch.from_numpy(a).to(cuda), torch.from_numpy(x).to(cuda)
     f = SellMatrix.from_dense(a, device=cuda)
+    g = BellMatrix.from_dense(a, device=cuda)
     calls = {"dense": lambda: dense_cuda(at, xt),
-             "mxu": lambda: sell_mxu_spmm(f.idx, f.vals, xt, n=4096)}
+             "mxu": lambda: sell_mxu_spmm(f.idx, f.vals, xt, n=4096),
+             "bell": lambda: bell_spmm(g.bitmap, g.vals, xt,
+                                       block_m=g.block_m, n=4096)}
     for name, call in calls.items():
         call()                               # counters allocated, warm
         torch.cuda.synchronize()
@@ -291,7 +394,8 @@ def _sass_by_function(lib_path):
 def test_sass_holds_tensor_cores_and_async_copies(cuda):
     """K11's compiled code multiplies on the tensor cores in TF32, three
     products a step (3xTF32, no single-pass path); K2's streams A with
-    asynchronous copies (LDGSTS)."""
+    asynchronous copies (LDGSTS); K1's ring kernel (16 and 32 batch rows)
+    bulk-copies its tiles (UBLKCP); K12 copies with cp.async."""
     from tpusparse_torch.kernels import _build
     sass = _sass_by_function(_build.build())
     mxu = {k: v for k, v in sass.items() if "sell_mxu_kernel" in k}
@@ -304,6 +408,13 @@ def test_sass_holds_tensor_cores_and_async_copies(cuda):
         assert "UBLKCP" in text, name
     for name, text in dense.items():
         assert "LDGSTS" in text or "UBLKCP" in text, name
+    ring = {k: v for k, v in sass.items() if "sell_ring_kernel" in k}
+    bell = {k: v for k, v in sass.items() if re.search(r"\d+bell_kernelI", k)}
+    assert len(ring) == 3 and len(bell) == 4, sorted(sass)
+    for name, text in ring.items():        # bulk-copied tiles
+        assert "UBLKCP" in text, name
+    for name, text in bell.items():        # words, x and values by cp.async
+        assert "LDGSTS" in text, name
 
 
 @pytest.mark.parametrize("g", [1, 8])

@@ -1,31 +1,38 @@
-"""Parent against new K2 (dense) and K11 (SELL decompress-to-dense) on one
-GPU, timed in turns: parent, new, new, parent (A B B A).
+"""Parent against new kernels on one GPU, timed in turns: parent, new, new,
+parent (A B B A).
 
 Usage (on the card, from the repository root):
 
-    python -m tpusparse_torch.bench.abba --parent DIR [--out FILE]
+    python -m tpusparse_torch.bench.abba --parent DIR [--points K1,K12]
+        [--variant DIR ...] [--out FILE]
 
-DIR holds an earlier version's ``dense.cu`` and ``sell_mxu_spmm.cu`` with
-the headers they include (for instance unpacked with ``git archive
-<commit> tpusparse_torch/csrc``). Both are built with the same nvcc flags
-into ``DIR/_build/libparent.so`` and called through the earlier C
-interface (a second kernel adds the slices), with the launch shape of
-``_build.split_work``. The new kernels are the package's own.
+DIR holds an earlier version's ``csrc`` sources (for instance unpacked with
+``git archive <commit> tpusparse_torch/csrc``). The sources of the chosen
+points' kernels are built with the package's nvcc flags into
+``DIR/_build/libparent.so``. K1 (``sell_spmv.cu``) and K12
+(``bell_spmv.cu``) are called through the C interface they had before
+their one-launch redesign: no arrival counters, the slices of
+``_build.split_work`` added by a second, reduce kernel. K2 (``dense.cu``)
+and K11 (``sell_mxu_spmm.cu``) are called through the current interface.
+The new kernels are the package's own.
 
-Points: K2 on the headline workload (4096^2, d = 0.5, seed 0) at B = 1 and
-8; K11 at the six floors points (``bench.report``: 4096^2, d in {0.1,
-0.5}, B in {1, 8, 32}). At each point it checks parent and new against
-each other (atol 1e-4), then times A, B, B, A with ``bench.runner``'s
-``device_time`` (median of 20 calls, read-flushed L2), then the library
-call (cuBLAS for K2, cuSPARSE CSR for K11) once, and each contestant's
-device time in CUDA kernels per call (``bench.profile.kernel_times``:
-``torch.profiler`` after the same L2 flush). It then counts, with
-``cuobjdump -sass``, the tensor-core (HMMA), asynchronous-copy (LDGSTS,
-UBLKCP) and shared-atomic instructions of each K2 and K11 kernel of both
+Points: K1 on the headline workload (4096^2, d = 0.5, seed 0) at B = 1 and
+8 and at the six floors points (``bench.report``: 4096^2, d in {0.1, 0.5},
+B in {1, 8, 32}); K12 on the headline workload's BELL pack (block_m 512)
+at B = 1 and 8; K2 on the headline workload at B = 1 and 8; K11 at the six
+floors points. ``--points`` picks kernels (default K1,K12). At each point
+it checks parent and new against each other (atol 1e-4), then times A, B,
+B, A with ``bench.runner``'s ``device_time`` (median of 20 calls,
+read-flushed L2), then the library call (cuSPARSE CSR for K1, K11 and K12,
+cuBLAS for K2) once, and each contestant's device time in CUDA kernels per
+call (``bench.profile.kernel_times``: ``torch.profiler`` after the same L2
+flush). It then
+counts, with ``cuobjdump -sass``, the tensor-core (HMMA), asynchronous-copy
+(LDGSTS, UBLKCP) and shared-atomic instructions of each kernel of both
 libraries. It prints a Markdown table headed by the card's name and power
-limit, and writes every number as JSON to FILE. Each ``--variant DIR``
-(a tree with the current C interface, for instance a copy with one phase
-of a kernel cut out) joins the turns as a third contestant, in the middle:
+limit, and writes every number as JSON to FILE. Each ``--variant DIR`` (a
+tree with the current C interface, for instance a copy with one phase of a
+kernel cut out) joins the turns as a further contestant, in the middle:
 A B V .. V B A; its results are not checked.
 """
 
@@ -47,31 +54,41 @@ from tpusparse_torch.bench import report
 from tpusparse_torch.bench.profile import kernel_times
 from tpusparse_torch.bench.roofline import card_info
 from tpusparse_torch.bench.runner import device_time
+from tpusparse_torch.formats.bell import BellMatrix
+from tpusparse_torch.formats.sell import SellMatrix
 from tpusparse_torch.kernels import _build
+from tpusparse_torch.kernels.bell_spmv import bell_spmm
 from tpusparse_torch.kernels.dense import dense_cuda, dense_torch
 from tpusparse_torch.kernels.sell_mxu_spmm import sell_mxu_spmm
+from tpusparse_torch.kernels.sell_spmv import _VALS_KIND, sell_spmm
 from tpusparse_torch.testing import generators
-from tpusparse_torch.utils import cdiv
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# The kernels' sources and the C interface each is called through in the
+# parent: K1 and K12 as before their one-launch redesign, K2 and K11 as now.
+SOURCES = {"K1": "sell_spmv.cu", "K12": "bell_spmv.cu", "K2": "dense.cu",
+           "K11": "sell_mxu_spmm.cu"}
 PARENT_SIGNATURES = {
-    # a, x, part, y, m, n, batch, slices, per_slice, device, stream
-    "tps_dense_spmm": [_P] * 4 + [_I] * 6 + [_P],
-    # idx, vals, x, part, y, nb, nt, w, batch, ldx, slices, per_slice, n,
-    # device, stream
-    "tps_sell_mxu_spmm": [_P] * 5 + [_I] * 9 + [_P],
+    # idx, vals, vals_kind, x, scales, part, y, nb, nt, w, batch, ldx,
+    # slices, per_slice, n, device, stream
+    "K1": ("tps_sell_spmm", [_P, _P, _I, _P, _P, _P, _P] + [_I] * 9 + [_P]),
+    # bitmap, vals, x, part, y, nb, mb, block_m, w, batch, ldx, slices,
+    # per_slice, n, device, stream
+    "K12": ("tps_bell_spmm", [_P] * 5 + [_I] * 10 + [_P]),
+    "K2": ("tps_dense_spmm", _build._SIGNATURES["tps_dense_spmm"]),
+    "K11": ("tps_sell_mxu_spmm", _build._SIGNATURES["tps_sell_mxu_spmm"]),
 }
+SASS_NAMES = r"sell_ring|sell_partial|bell_kernel|bell_partial|dense|mxu"
 
 
-def build_other(src: Path, stem: str) -> Path:
-    """DIR's dense.cu and sell_mxu_spmm.cu, built into DIR/_build/lib<stem>.so
-    with the package's nvcc flags."""
+def build_other(src: Path, stem: str, kernels) -> Path:
+    """DIR's sources of ``kernels``, built into DIR/_build/lib<stem>.so with
+    the package's nvcc flags, one nvcc a source, all at once."""
     out = src / "_build"
     out.mkdir(exist_ok=True)
     cc = _build.nvcc()
-    objs = []
-    procs = []
-    for name in ("dense.cu", "sell_mxu_spmm.cu"):
+    objs, procs = [], []
+    for name in sorted({SOURCES[k] for k in kernels}):
         obj = out / (Path(name).stem + ".o")
         objs.append(obj)
         procs.append(subprocess.Popen(
@@ -87,7 +104,7 @@ def build_other(src: Path, stem: str) -> Path:
     return lib
 
 
-def load(path: Path, signatures) -> ctypes.CDLL:
+def load(path: Path, signatures: dict) -> ctypes.CDLL:
     so = ctypes.CDLL(str(path))
     for name, argtypes in signatures.items():
         getattr(so, name).argtypes = argtypes
@@ -96,19 +113,18 @@ def load(path: Path, signatures) -> ctypes.CDLL:
 
 
 class _Variant:
-    """A variant's two entries, and the package library's error strings."""
+    """A variant library's entries, and the package library's error
+    strings, in the place of ``_build.lib()``."""
 
-    def __init__(self, so):
-        self.so = so
-        self.tps_dense_spmm = so.tps_dense_spmm
-        self.tps_sell_mxu_spmm = so.tps_sell_mxu_spmm
+    def __init__(self, so, names):
+        for name in names:
+            setattr(self, name, getattr(so, name))
         self.tps_error_string = _build.lib().tps_error_string
 
 
-def through(so, fn):
-    """fn() with the package's wrappers calling ``so`` (a variant built
-    with the current C interface) instead of the package's library."""
-    variant = _Variant(so)
+def through(variant, fn):
+    """fn() with the package's wrappers calling ``variant`` (a library with
+    the current C interface) instead of the package's library."""
 
     def run():
         keep = _build.lib
@@ -120,61 +136,102 @@ def through(so, fn):
     return run
 
 
-def parent_dense(so, a, x):
-    dev = a.device
-    m, n = a.shape
-    batch = x.shape[0]
-    per, slices = _build.split_work(m, cdiv(n, 128), dev)
-    part = torch.empty((slices, batch, n), dtype=torch.float32, device=dev)
-    y = torch.empty((batch, n), dtype=torch.float32, device=dev)
-    rc = so.tps_dense_spmm(a.data_ptr(), x.data_ptr(), part.data_ptr(),
-                           y.data_ptr(), m, n, batch, slices, per, dev.index,
-                           _build.stream_of(a))
+def _check(rc: int, what: str) -> None:
     if rc:
-        raise RuntimeError(f"parent K2: CUDA error {rc}")
-    return y
+        raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
-def parent_mxu(so, idx, vals, x, n):
+def parent_sell(so, s: SellMatrix, x, n):
+    """The earlier K1: split_work slices, then the reduce kernel."""
     dev = x.device
-    nb, nt, w, _ = vals.shape
+    nb, nt, w, _ = s.vals.shape
     batch = x.shape[0]
     per, slices = _build.split_work(nt, nb, dev)
     part = torch.empty((slices, batch, nb * 128), dtype=torch.float32,
                        device=dev)
     y = torch.empty((batch, n), dtype=torch.float32, device=dev)
-    rc = so.tps_sell_mxu_spmm(idx.data_ptr(), vals.data_ptr(), x.data_ptr(),
-                              part.data_ptr(), y.data_ptr(), nb, nt, w, batch,
-                              x.shape[1], slices, per, n, dev.index,
-                              _build.stream_of(x))
-    if rc:
-        raise RuntimeError(f"parent K11: CUDA error {rc}")
+    _check(so.tps_sell_spmm(
+        s.idx.data_ptr(), s.vals.data_ptr(), _VALS_KIND[s.vals.dtype],
+        x.data_ptr(), None, part.data_ptr(), y.data_ptr(), nb, nt, w, batch,
+        x.shape[1], slices, per, n, dev.index, _build.stream_of(x)),
+        "parent K1")
     return y
 
 
-def points(dev, so):
-    """(name, parent, new, library) for every point; ``new`` calls the
-    package's wrappers."""
+def parent_bell(so, f: BellMatrix, x, n):
+    """The earlier K12: 64 columns a block, split_work slices, then the
+    reduce kernel."""
+    dev = x.device
+    nb, mb, _, w = f.vals.shape
+    batch = x.shape[0]
+    per, slices = _build.split_work(mb, nb * 2, dev)
+    part = torch.empty((slices, batch, nb * 128), dtype=torch.float32,
+                       device=dev)
+    y = torch.empty((batch, n), dtype=torch.float32, device=dev)
+    _check(so.tps_bell_spmm(
+        f.bitmap.data_ptr(), f.vals.data_ptr(), x.data_ptr(), part.data_ptr(),
+        y.data_ptr(), nb, mb, f.block_m, w, batch, x.shape[1], slices, per, n,
+        dev.index, _build.stream_of(x)), "parent K12")
+    return y
+
+
+def _headline_x(b: int, dev) -> torch.Tensor:
+    x = (generators.random_sparse_vector(4096, 0.5, 0)[None, :]
+         if b == 1 else generators.random_sparse_batch(b, 4096, 0.5, 0))
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+
+def points(dev, parent, kernels):
+    """(name, parent, new, library) for every point of ``kernels``; ``new``
+    calls the package's wrappers."""
     out = []
     a = generators.random_sparse_matrix(4096, 4096, density=0.5, seed=0)
     a_dev = torch.from_numpy(a).to(dev)
-    for b in (1, 8):
-        x = (generators.random_sparse_vector(4096, 0.5, 0)[None, :]
-             if b == 1 else generators.random_sparse_batch(8, 4096, 0.5, 0))
-        xt = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-        out.append((f"K2 B={b}",
-                    lambda xt=xt: parent_dense(so, a_dev, xt),
-                    lambda xt=xt: dense_cuda(a_dev, xt),
-                    lambda xt=xt: dense_torch(a_dev, xt)))
-    for wl in report.workloads(dev):
-        s, at_csr = wl["sell"], wl["at_csr"]
-        for b in report.BATCHES:
-            xt = torch.from_numpy(report.grid_batch(b)).to(dev)
-            out.append((
-                f"K11 d={wl['density']} B={b}",
-                lambda s=s, xt=xt: parent_mxu(so, s.idx, s.vals, xt, 4096),
-                lambda s=s, xt=xt: sell_mxu_spmm(s.idx, s.vals, xt, n=4096),
-                lambda xt=xt, at_csr=at_csr: at_csr @ xt.T))
+    at_csr = torch.from_numpy(np.ascontiguousarray(a.T)).to(dev) \
+        .to_sparse_csr()
+    heads = [(b, _headline_x(b, dev)) for b in (1, 8)]
+    if "K1" in kernels:
+        s = SellMatrix.from_dense(a, device=dev)
+        for b, xt in heads:
+            out.append((f"K1 headline B={b}",
+                        lambda xt=xt: parent_sell(parent, s, xt, 4096),
+                        lambda xt=xt: sell_spmm(s.idx, s.vals, xt, n=4096),
+                        lambda xt=xt: at_csr @ xt.T))
+    if "K12" in kernels:
+        f = BellMatrix.from_dense(a, device=dev)
+        for b, xt in heads:
+            out.append((f"K12 headline B={b}",
+                        lambda xt=xt: parent_bell(parent, f, xt, 4096),
+                        lambda xt=xt: bell_spmm(f.bitmap, f.vals, xt,
+                                                block_m=f.block_m, n=4096),
+                        lambda xt=xt: at_csr @ xt.T))
+    if "K2" in kernels:
+        for b, xt in heads:
+            out.append((f"K2 B={b}",
+                        through(parent, lambda xt=xt: dense_cuda(a_dev, xt)),
+                        lambda xt=xt: dense_cuda(a_dev, xt),
+                        lambda xt=xt: dense_torch(a_dev, xt)))
+    if "K1" in kernels or "K11" in kernels:
+        for wl in report.workloads(dev):
+            s, csr = wl["sell"], wl["at_csr"]
+            for b in report.BATCHES:
+                xt = torch.from_numpy(report.grid_batch(b)).to(dev)
+                where = f"d={wl['density']} B={b}"
+                if "K1" in kernels:
+                    out.append((
+                        f"K1 {where}",
+                        lambda s=s, xt=xt: parent_sell(parent, s, xt, 4096),
+                        lambda s=s, xt=xt: sell_spmm(s.idx, s.vals, xt,
+                                                     n=4096),
+                        lambda xt=xt, csr=csr: csr @ xt.T))
+                if "K11" in kernels:
+                    out.append((
+                        f"K11 {where}",
+                        through(parent, lambda s=s, xt=xt: sell_mxu_spmm(
+                            s.idx, s.vals, xt, n=4096)),
+                        lambda s=s, xt=xt: sell_mxu_spmm(s.idx, s.vals, xt,
+                                                         n=4096),
+                        lambda xt=xt, csr=csr: csr @ xt.T))
     return out
 
 
@@ -186,8 +243,7 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
     for line in text.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            keep = re.search(r"dense|mxu", name)
-            name = name if keep else None
+            name = name if re.search(SASS_NAMES, name) else None
             if name:
                 out[name] = {"HMMA": 0, "HMMA_TF32": 0, "LDGSTS": 0,
                              "UBLKCP": 0, "ATOMS": 0}
@@ -203,57 +259,67 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, required=True)
+    ap.add_argument("--points", default="K1,K12",
+                    help="kernels to compare, of K1, K12, K2, K11")
     ap.add_argument("--variant", type=Path, action="append", default=[],
                     help="a tree with the current C interface, timed as "
-                    "a third contestant (repeatable; not checked)")
+                    "a further contestant (repeatable; not checked)")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench.abba: needs a CUDA card", file=sys.stderr)
         return 2
+    kernels = args.points.split(",")
+    if not set(kernels) <= set(SOURCES):
+        ap.error(f"--points: {kernels} not in {list(SOURCES)}")
     dev = torch.device("cuda")
     card = card_info()
-    parent_lib = build_other(args.parent, "parent")
-    so = load(parent_lib, PARENT_SIGNATURES)
-    mine = {k: _build._SIGNATURES[k] for k in PARENT_SIGNATURES}
-    variants = [(str(v), load(build_other(v, "variant"), mine))
+    parent_lib = build_other(args.parent, "parent", kernels)
+    parent_sigs = dict(PARENT_SIGNATURES[k] for k in kernels)
+    parent = load(parent_lib, parent_sigs)
+    if "K2" in kernels or "K11" in kernels:   # through(): the current interface
+        parent = _Variant(parent, parent_sigs)
+    names = [PARENT_SIGNATURES[k][0] for k in kernels]
+    mine = {k: _build._SIGNATURES[k] for k in names}
+    variants = [(str(v), _Variant(load(build_other(v, "variant", kernels),
+                                       mine), names))
                 for v in args.variant]
     rows = []
-    for name, parent, new, lib in points(dev, so):
-        yp, yn = parent(), new()
+    for name, old, new, lib in points(dev, parent, kernels):
+        yp, yn = old(), new()
         torch.cuda.synchronize()
         diff = float((yp.double() - yn.double()).abs().max())
         if diff > 1e-4:
             raise AssertionError(f"{name}: |parent - new| = {diff:.3e}")
-        order = [parent, new] + [through(v, new) for _, v in variants]
+        extra = [(vn, through(v, new)) for vn, v in variants]
+        order = [old, new] + [f for _, f in extra]
         order = order + order[::-1]
         t = [device_time(f).seconds * 1e6 for f in order]
         lib_us = device_time(lib).seconds * 1e6
-        kern_us = {label: sum(kernel_times(lambda f, xx: fn(), None,
+        kern_us = {label: sum(kernel_times(lambda f, xx, fn=fn: fn(), None,
                                            yp).values())
-                   for label, fn in [("parent", parent), ("new", new)]
-                   + [(vn, through(v, new)) for vn, v in variants]}
+                   for label, fn in [("parent", old), ("new", new)] + extra}
         row = {"point": name, "A1": t[0], "B1": t[1], "B2": t[-2], "A2": t[-1],
                "parent_us": (t[0] + t[-1]) / 2, "new_us": (t[1] + t[-2]) / 2,
                "library_us": lib_us, "max_abs_diff": diff,
                "kernel_us": kern_us,
                "variants_us": {vn: (t[2 + i] + t[-3 - i]) / 2
-                               for i, (vn, _) in enumerate(variants)}}
+                             for i, (vn, _) in enumerate(extra)}}
         row["new_over_parent"] = row["new_us"] / row["parent_us"]
         rows.append(row)
         print(json.dumps(row), flush=True)
     sass = {"parent": sass_counts(parent_lib),
             "new": sass_counts(_build.build())}
     print(f"\n## A B B A on {card['line']} (us per call)\n")
-    print("| point | A1 | B1 | B2 | A2 | new / parent | library |\n"
-          "|---|---|---|---|---|---|---|")
+    print("| point | A1 | B1 | B2 | A2 | new / parent | library | variants | "
+          "kernels |\n|---|---|---|---|---|---|---|---|---|")
     for r in rows:
         print(f"| {r['point']} | {r['A1']:.2f} | {r['B1']:.2f} | "
               f"{r['B2']:.2f} | {r['A2']:.2f} | {r['new_over_parent']:.3f} "
-              f"| {r['library_us']:.2f} |"
-              + "".join(f" {v}: {t:.2f} |" for v, t in r["variants_us"].items())
-              + " kernels: " + ", ".join(f"{k} {t:.2f}"
-                                         for k, t in r["kernel_us"].items()))
+              f"| {r['library_us']:.2f} | "
+              + ", ".join(f"{v} {t:.2f}" for v, t in r["variants_us"].items())
+              + " | " + ", ".join(f"{k} {t:.2f}"
+                                  for k, t in r["kernel_us"].items()) + " |")
     for which, funcs in sass.items():
         for fn, counts in sorted(funcs.items()):
             print(f"sass {which} {fn}: {json.dumps(counts)}")

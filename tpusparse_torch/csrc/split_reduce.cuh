@@ -1,6 +1,6 @@
 // The fixed-order split-contraction reduce, fused into the kernel that
-// writes the partial sums (K2 dense.cu, K11 sell_mxu_spmm.cu), so that a
-// call is one launch.
+// writes the partial sums (K2 dense.cu, K11 sell_mxu_spmm.cu, K12
+// bell_spmv.cu), so that a call is one launch.
 //
 // Every block of a (column group, batch tile) writes its slice's partial
 // sums to part[(slice * batch + b) * ldp + c], then calls split_reduce_tail:
@@ -47,7 +47,11 @@ __device__ __forceinline__ void split_reduce_tail(const float* part, float* __re
   __syncthreads();
   if (threadIdx.x == 0) last = atomicAdd(counter, 1) == slices - 1;
   __syncthreads();
-  if (!last || rows <= 0 || cols <= 0) return;
+  if (!last) return;
+  if (rows <= 0 || cols <= 0) {     // nothing of y here; the counter still resets
+    if (threadIdx.x == 0) *counter = 0;
+    return;
+  }
   __threadfence();   // ... and the other blocks' before the last one reads them
   constexpr int width = kVec ? 4 : 1;             // floats a word
   const int cw = (cols + width - 1) / width;      // words a row

@@ -38,8 +38,8 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # idx, vals, vals_kind, x, scales, part, y, nb, nt, w, batch, ldx,
-    # slices, per_slice, n, device, stream
-    "tps_sell_spmm": [_P, _P, _I, _P, _P, _P, _P] + [_I] * 9 + [_P],
+    # slices, per_slice, n, bb, stages, device, stream
+    "tps_sell_spmm": [_P, _P, _I, _P, _P, _P, _P] + [_I] * 11 + [_P],
     # plan, count, idx, vals, vals_kind, x, part, y, nb, ntot, g, plan_len,
     # w, batch, ldx, slices, per_slice, n, device, stream
     "tps_awsp_spmm": [_P, _P, _P, _P, _I, _P, _P, _P] + [_I] * 11 + [_P],
@@ -64,9 +64,9 @@ _SIGNATURES = {
     "tps_dia_spmv": [_P] * 4 + [_I] * 5 + [_P],
     # idx_signed, x, g, out, nb, nt, w, batch, ldx, ldg, device, stream
     "tps_sell_dvals": [_P] * 4 + [_I] * 7 + [_P],
-    # bitmap, vals, x, part, y, nb, mb, block_m, w, batch, ldx, slices,
-    # per_slice, n, device, stream
-    "tps_bell_spmm": [_P] * 5 + [_I] * 10 + [_P],
+    # bitmap, vals, x, part, y, counters, nb, mb, block_m, w, batch, ldx,
+    # slices, per_slice, n, bb, device, stream
+    "tps_bell_spmm": [_P] * 6 + [_I] * 11 + [_P],
     # idx, vals, x, part, y, counters, nb, nt, w, batch, ldx, slices,
     # per_slice, n, device, stream
     "tps_sell_mxu_spmm": [_P] * 6 + [_I] * 9 + [_P],
@@ -161,13 +161,38 @@ def split_work(units: int, blocks: int, device: torch.device) -> tuple[int, int]
     """(per_slice, slices): cut ``units`` (windows, plan items or rows) into
     slices so that ``blocks`` x slices blocks fill the card about eight
     blocks per SM deep."""
-    want = max(1, min(units, cdiv(8 * sm_count(device), max(blocks, 1))))
+    return split_slices(units, blocks, sm_count(device))
+
+
+def split_slices(units: int, blocks: int, sms: int) -> tuple[int, int]:
+    """``split_work`` on a card of ``sms`` SMs."""
+    want = max(1, min(units, cdiv(8 * sms, max(blocks, 1))))
     per = max(1, cdiv(units, want))
     return per, max(1, cdiv(units, per))
 
 
 def sm_count(device: torch.device) -> int:
     return _sm_count(device.index)
+
+
+# Dynamic shared memory a block may opt in to on an H100 (227 KB), less 1 KB
+# for a kernel's static shared memory; and an SM's shared memory (228 KB),
+# of which each resident block also takes 1 KB.
+SMEM_LIMIT = 232448 - 1024
+SM_SMEM = 233472
+
+
+@functools.cache
+def _smem_limit(index: int) -> int:
+    props = torch.cuda.get_device_properties(index)
+    return getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT + 1024) \
+        - 1024
+
+
+def smem_limit(device: torch.device) -> int:
+    """The dynamic shared memory a block of a kernel with up to 1 KB of
+    static shared memory may use on ``device``."""
+    return _smem_limit(device.index)
 
 
 def launch_shape(units: int, groups: int, slots: int,

@@ -12,18 +12,102 @@ kernel ranks a whole column in one warp, the plain version with a cumsum.
 
 ``bell_spmm`` launches the CUDA kernel for CUDA tensors and uses
 ``bell_spmm_plain`` only for CPU tensors; any other device raises.
+
+The CUDA kernel decodes each column's bitmap once into a list of its live
+positions and then multiplies only its live values, for every batch row a
+block holds (up to 32); a block owns half an output group, a run of
+contraction blocks (``bell_shape``) and those batch rows.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from tpusparse_torch.kernels import _build
+from tpusparse_torch.utils import cdiv
 
 _LANES = 128
-_COLS_PER_BLOCK = 64      # csrc/bell_spmv.cu kBellCols
 _MAX_BM = 1024            # at most 32 words a column: one per lane
-_MAX_W = 1024             # the kernel's per-lane prefetch holds 8 float4
+_MAX_W = 1024             # values a column buffer holds
+_WARPS = 8                # csrc/bell_spmv.cu kBellWarps
+_RING = 3                 # kBellRing: column buffers a warp
+_COLS = 64                # kBellCols: columns a block
+_MAX_BB = 32              # batch rows a block
+_MAX_RESIDENT = 3         # the kernel's __launch_bounds__ blocks an SM
+
+
+class BellShape(NamedTuple):
+    """A K12 call's launch: ``bb`` batch rows a block (``nz`` blocks down
+    the batch), ``per_slice`` contraction blocks a block, ``slices`` blocks
+    along them, ``resident`` blocks an SM, ``smem`` bytes of shared memory a
+    block and ``counters`` arrival counters (one per half group and batch
+    block)."""
+    bb: int
+    nz: int
+    per_slice: int
+    slices: int
+    resident: int
+    smem: int
+    counters: int
+
+
+def _x_stride(bb: int) -> int:
+    return bb if bb <= 2 or (bb // 4) % 2 == 1 else bb + 4
+
+
+def bell_smem_bytes(block_m: int, w: int, bb: int, per: int) -> int:
+    """Dynamic shared memory of a K12 block (``csrc/bell_spmv.cu``
+    ``BellSmem``): the run's bitmap words and transposed x windows, the
+    warps' rings of column values and lists of live positions, then the
+    block's sums."""
+    words = per * _COLS * (block_m // 32) * 4
+    xs = per * block_m * _x_stride(bb) * 4
+    rings = _WARPS * _RING * w * 4
+    lists = _WARPS * (block_m + 4) * 2
+    sums = bb * _COLS * 4
+    return max(words + xs + rings + lists, sums) + sums
+
+
+def _resident(smem: int) -> int:
+    """Blocks of ``smem`` bytes an SM holds (each also takes 1 KB)."""
+    return max(1, min(_MAX_RESIDENT, _build.SM_SMEM // (smem + 1024)))
+
+
+def bell_shape(nb: int, mb: int, block_m: int, w: int, batch: int, sms: int,
+               smem_limit: int = _build.SMEM_LIMIT) -> BellShape:
+    """The launch of a K12 call on a card of ``sms`` SMs and ``smem_limit``
+    bytes of shared memory a block: as many batch rows a block as fit (up to
+    32, a power of 2); then the run of contraction blocks a block that
+    takes the fewest waves of resident blocks (up to 3 an SM, as shared
+    memory allows), and of those the most blocks. Raises if one batch row
+    and one contraction block do not fit."""
+    bb = 1
+    while bb < min(batch, _MAX_BB):
+        bb *= 2
+    while bb > 1 and bell_smem_bytes(block_m, w, bb, 1) > smem_limit:
+        bb //= 2
+    need = bell_smem_bytes(block_m, w, bb, 1)
+    if need > smem_limit:
+        raise ValueError(f"bell_spmm: block_m {block_m} and w {w} need {need} "
+                         f"bytes of shared memory, over the card's "
+                         f"{smem_limit}")
+    nz = cdiv(batch, bb)
+    best = None
+    for p in range(1, mb + 1):          # the fewest waves, then most blocks
+        smem = bell_smem_bytes(block_m, w, bb, p)
+        if smem > smem_limit:
+            break
+        res = _resident(smem)
+        blocks = 2 * nb * nz * cdiv(mb, p)
+        key = (cdiv(blocks, res * sms), -blocks)
+        if best is None or key < best[0]:
+            best = (key, p, res)
+    _, per, resident = best
+    slices = cdiv(mb, per)
+    return BellShape(bb, nz, per, slices, resident,
+                     bell_smem_bytes(block_m, w, bb, per), 2 * nb * nz)
 
 
 def expand_mask(bitmap: torch.Tensor, block_m: int) -> torch.Tensor:
@@ -69,7 +153,7 @@ def bell_spmm(bitmap: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, *,
         raise ValueError(f"bell_spmm: bitmap {tuple(bitmap.shape)} "
                          f"{bitmap.dtype} vs vals {tuple(vals.shape)}, "
                          f"block_m {block_m}")
-    if block_m > _MAX_BM or w > _MAX_W or w % 4:
+    if not 0 < block_m <= _MAX_BM or not 0 < w <= _MAX_W or w % 4:
         raise ValueError(f"bell_spmm: block_m {block_m} (<= {_MAX_BM}) and "
                          f"w {w} (<= {_MAX_W}, a multiple of 4) out of range")
     if vals.dtype != torch.float32:
@@ -77,18 +161,23 @@ def bell_spmm(bitmap: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, *,
     if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] > mb * block_m:
         raise ValueError(f"bell_spmm: x must be fp32 (B, <={mb * block_m}), "
                          f"got {x.dtype} {tuple(x.shape)}")
-    dev = _build.require_cuda("bell_spmm", bitmap, vals, x, aligned=(vals,))
     n = nb * _LANES if n is None else n
+    if not 0 <= n <= nb * _LANES:
+        raise ValueError(f"bell_spmm: n = {n} outside 0 .. {nb * _LANES}")
+    dev = _build.require_cuda("bell_spmm", bitmap, vals, x,
+                              aligned=(bitmap, vals))
     batch = x.shape[0]
-    per_slice, slices = _build.split_work(
-        mb, nb * (_LANES // _COLS_PER_BLOCK), dev)
-    part = torch.empty((slices, batch, nb * _LANES), dtype=torch.float32,
-                       device=dev)
+    shape = bell_shape(nb, mb, block_m, w, batch, _build.sm_count(dev),
+                       _build.smem_limit(dev))
+    part = torch.empty((shape.slices, batch, nb * _LANES),
+                       dtype=torch.float32, device=dev)
     y = torch.empty((batch, n), dtype=torch.float32, device=dev)
+    counters = _build.arrival_counters(dev, shape.counters)
     rc = _build.lib().tps_bell_spmm(
         bitmap.data_ptr(), vals.data_ptr(), x.data_ptr(), part.data_ptr(),
-        y.data_ptr(), nb, mb, block_m, w, batch, x.shape[1], slices,
-        per_slice, n, dev.index, _build.stream_of(x))
+        y.data_ptr(), counters.data_ptr(), nb, mb, block_m, w, batch,
+        x.shape[1], shape.slices, shape.per_slice, n, shape.bb, dev.index,
+        _build.stream_of(x))
     _build.check(rc, "bell_spmm")
     bell_spmm.launches += 1
     return y

@@ -93,6 +93,13 @@ and then the JAX package's full bench registry and its floors study:
     just before each entry and read just after: ``bell_cuda`` must launch
     K12, ``sell_binned_cuda`` K1 and K5, ``bsr_cuda`` K6, ``tcsr_cuda`` K7
     and/or K6, ``rsell_cuda`` K4, ``asp_cuda`` K9, and ``ell_torch`` none;
+    then K6 on ``bsr_cuda``'s pack (block_m 512) and K7 on ``tcsr_cuda``'s
+    (its SELL tier), where 48 of their 49 counted launches land, against
+    their plain versions and the oracle at B = 1 and 8, timed beside
+    cuBLAS and K2 on the same dense A (K6) and cuSPARSE and K1 on its SELL
+    pack (K7): the ``by_workload`` of their rows (K6 and K7 walk the pack
+    as part-tile work items, sized to fill the card, and a second kernel
+    sums each group's items in a fixed order);
 14. holds K12 at B = 1 and 8 against its plain version and the oracle,
     timed beside its plain version and cuSPARSE CSR (one launch a call: a
     column's bitmap decoded once into a list of its live positions, then
@@ -969,10 +976,11 @@ def step_times(apply, params, m, n, dev) -> dict:
     return out
 
 
-def full_registry_path() -> dict[str, dict[str, int]]:
+def full_registry_path() -> tuple[dict[str, dict[str, int]], dict]:
     """Phase 13: the full registry's own entries at the headline workload
     through ``SpmvTester``, each against the oracle and timed, its
-    launches counted from just before it to just after."""
+    launches counted from just before it to just after. Returns the
+    launches and the entries' packs."""
     packs: dict[str, object] = {}
 
     def cached(e):
@@ -1023,7 +1031,72 @@ def full_registry_path() -> dict[str, dict[str, int]]:
         else:
             require(set(launched[name]) == set(kernels),
                     f"{name}: launched {launched[name]}, want {kernels}")
-    return launched
+    return launched, packs
+
+
+def registry_block_cases(a, packs, dev):
+    """K6 and K7 on the full registry's own headline packs (``bsr_cuda`` at
+    block_m 512, ``tcsr_cuda``'s SELL tier), where 48 of each one's 49
+    counted launches land: kernel, plain version, library call (cuBLAS,
+    cuSPARSE CSR), and the yardstick kernel on the same A (K2 on the dense
+    A, K1 on its SELL pack)."""
+    m, n = a.shape
+    nnz = int((a != 0).sum())
+    a_dev = torch.from_numpy(a).to(dev)
+    at_csr = torch.from_numpy(np.ascontiguousarray(a.T)).to(dev) \
+        .to_sparse_csr()
+    b, t = packs["bsr_cuda"], packs["tcsr_cuda"]
+    require(t.bsr is None and t.vals.shape[0] > 0,
+            f"tcsr_cuda's headline pack: {t!r}")
+    sell = SellMatrix.from_dense(a, device=dev)
+
+    def bsr_case(xt, y_ref):
+        args = (b.bi, b.bj, b.blocks, xt)
+        nbytes = b.device_bytes() + 4 * (xt.numel() + xt.shape[0] * n)
+        return (lambda: bsr_spmm(*args, n_padded=b.padded[1], n=n,
+                                 plan=b._work),
+                lambda: bsr_spmm_plain(*args, n_padded=b.padded[1], n=n),
+                lambda: dense_torch(a_dev, xt), nbytes,
+                2 * nnz * xt.shape[0], y_ref)
+
+    def bsell_case(xt, y_ref):
+        args = (t.s_bi, t.s_bj, t.idx, t.vals, xt)
+        nbytes = t.device_bytes() + 4 * (xt.numel() + xt.shape[0] * n)
+        return (lambda: bsell_spmm(*args, n_padded=t.padded[1], n=n,
+                                   plan=t._work),
+                lambda: bsell_spmm_plain(*args, n_padded=t.padded[1], n=n),
+                cusparse(at_csr, xt), nbytes, 2 * nnz * xt.shape[0], y_ref)
+
+    yardsticks = {"bsr_spmv": ("K2", lambda xt: dense_cuda(a_dev, xt)),
+                  "bsell_spmv": ("K1", lambda xt: sell_spmm(
+                      sell.idx, sell.vals, xt, n=n))}
+    return {"bsr_spmv": bsr_case, "bsell_spmv": bsell_case}, yardsticks
+
+
+def check_registry_blocks(a, packs, x1, x8, dev) -> dict[str, dict]:
+    """Phase 13b: K6 and K7 on the full registry's headline packs against
+    their plain versions and the oracle, timed beside the library call and
+    the yardstick kernel (K2 and cuBLAS for ``bsr_cuda``, K1 and cuSPARSE
+    for ``tcsr_cuda``)."""
+    print("-- K6 and K7 on the full registry's headline packs")
+    cases, yardsticks = registry_block_cases(a, packs, dev)
+    res = check_kernels(cases, lambda x: reference.sgemm_cpu(x, a),
+                        (x1[None, :], x8), dev)
+    for batch, x in zip(BATCHES, (x1[None, :], x8)):
+        xt = torch.from_numpy(x).to(dev)
+        for name, (label, fn) in yardsticks.items():
+            row = res[name]["by_batch"][batch]
+            row["yardstick"] = label
+            row["yardstick_ms"] = device_time(lambda: fn(xt),
+                                              name=label).seconds * 1e3
+        k6, k7 = (res[k]["by_batch"][batch] for k in ("bsr_spmv",
+                                                       "bsell_spmv"))
+        print(f"   B={batch}: bsr_cuda K6 {k6['ms'] * 1e3:.2f} us | K2 "
+              f"{k6['yardstick_ms'] * 1e3:.2f} us | cuBLAS "
+              f"{k6['library_ms'] * 1e3:.2f} us; tcsr_cuda K7 "
+              f"{k7['ms'] * 1e3:.2f} us | K1 {k7['yardstick_ms'] * 1e3:.2f} "
+              f"us | cuSPARSE {k7['library_ms'] * 1e3:.2f} us")
+    return res
 
 
 def bell_kernel_cases(a, dev):
@@ -1274,7 +1347,8 @@ def main() -> int:
     steps = step_times(apply, params, cfg.m, cfg.n, dev)
     print(json.dumps({"training_step": steps}))
 
-    full_launches = full_registry_path()
+    full_launches, full_packs = full_registry_path()
+    registry_blocks = check_registry_blocks(a, full_packs, x1, x8, dev)
     print("-- K12 on the headline matrix")
     bell_results = check_kernels(bell_kernel_cases(a, dev),
                                  lambda x: reference.sgemm_cpu(x, a),
@@ -1291,6 +1365,11 @@ def main() -> int:
         kernel_rows(bell_results, full_launches["bell_cuda"], {}) + \
         [k11_row]
     require(len(kernels) == 12, f"{len(kernels)} kernel rows, want 12")
+    for row in kernels:         # K6 and K7 where most of their launches land
+        if row["name"] in registry_blocks:
+            row["by_workload"] = {"full_registry_headline": {
+                str(b): r for b, r in
+                registry_blocks[row["name"]]["by_batch"].items()}}
     for row in kernels:
         row["launches_all_paths"] = TOTALS[row["name"]]
     print("launches summed over all paths:", json.dumps(TOTALS))

@@ -16,14 +16,15 @@ Tolerance: 1e-4 between kernel and plain version (same products, summed in
 another order), 1e-3 against the float64 oracle (the repo's contract).
 
 K2, K11 and K12 sum their split contraction inside the one kernel: their
-tests also check that two calls give the same bits, that calls on two
-streams and calls after calls of another shape still match, that a call is
-one CUDA kernel, and (with ``cuobjdump``) that K11 multiplies in 3xTF32 on
-the tensor cores, K2 and K12 copy asynchronously and K1's ring kernel
-bulk-copies its tiles. K1 (every batch size from 1 to 40, its storage
-lanes, x narrower than the rows, one window, W = 8) and K12 (every
-block_m it takes, W up to 1024, empty and full columns) are also held to
-the same bits on two calls.
+tests (which also run K6 and K7) check that two calls give the same bits,
+that calls on two streams and calls after calls of another shape still
+match, that a call is one CUDA kernel, and (with ``cuobjdump``) that K11
+multiplies in 3xTF32 on the tensor cores, K2, K12 and K6's ring copy
+asynchronously and K1's ring kernel bulk-copies its tiles. K1 (every batch size from 1 to 40, its storage lanes, x narrower
+than the rows, one window, W = 8), K12 (every block_m it takes, W up to
+1024, empty and full columns), K6 (block_m 8-512) and K7 (W 1-128, both
+at B in {1, 2, 3, 5, 8, 9, 16}, empty packs) are also held to the same
+bits on two calls; K4 keeps its bits after K6 and K7 calls.
 """
 
 import functools
@@ -45,7 +46,8 @@ from tpusparse_torch.kernels.asp_spmv import asp_spmm, asp_spmm_plain
 from tpusparse_torch.kernels.awsp_spmv import (awsp_spmm, awsp_spmm_plain,
                                                device_group_plan)
 from tpusparse_torch.kernels.bell_spmv import bell_spmm, bell_spmm_plain
-from tpusparse_torch.kernels.bsell_spmv import bsell_spmm, bsell_spmm_plain
+from tpusparse_torch.kernels.bsell_spmv import (bsell_plans, bsell_spmm,
+                                               bsell_spmm_plain)
 from tpusparse_torch.kernels.bsr_spmv import bsr_spmm, bsr_spmm_plain
 from tpusparse_torch.kernels.dia_spmv import dia_spmv, dia_spmv_plain, fits
 from tpusparse_torch.kernels.dense import dense_cuda, dense_plain
@@ -235,8 +237,10 @@ def test_dense_kernel_edges(cuda, m, n, offset, batch):
 
 
 def _fused_cases(dev):
-    """K1, K2, K11 and K12 at two shapes each: (name, call) pairs, the call
-    returning the kernel's output and its plain version's."""
+    """K1, K2, K11, K12, K6 and K7 at two shapes each (K6 and K7 sum their
+    items in a second kernel, a different one at 8 batch rows and at 3):
+    (name, call) pairs, the call returning the kernel's output and its
+    plain version's."""
     cases = []
     for m, n, batch in ((4096, 4096, 8), (200, 300, 3)):
         a = generators.random_sparse_matrix(m, n, density=0.3, seed=m)
@@ -255,11 +259,25 @@ def _fused_cases(dev):
         cases.append((f"bell {m}x{n}", lambda g=g, xt=xt, n=n: (
             bell_spmm(g.bitmap, g.vals, xt, block_m=g.block_m, n=n),
             bell_spmm_plain(g.bitmap, g.vals, xt, block_m=g.block_m, n=n))))
+        b = BsrMatrix.from_dense(a, block_m=128, device=dev)
+        cases.append((f"bsr {m}x{n}", lambda b=b, xt=xt, n=n: (
+            bsr_spmm(b.bi, b.bj, b.blocks, xt, n_padded=b.padded[1], n=n,
+                     plan=b._work),
+            bsr_spmm_plain(b.bi, b.bj, b.blocks, xt, n_padded=b.padded[1],
+                           n=n))))
+        t = TcsrMatrix.from_dense(a, device=dev)
+        assert t.vals.shape[0] > 0
+        cases.append((f"bsell {m}x{n}", lambda t=t, xt=xt, n=n: (
+            bsell_spmm(t.s_bi, t.s_bj, t.idx, t.vals, xt,
+                       n_padded=t.padded[1], n=n, plan=t._work),
+            bsell_spmm_plain(t.s_bi, t.s_bj, t.idx, t.vals, xt,
+                             n_padded=t.padded[1], n=n))))
     return cases
 
 
 def test_fused_reduce_is_deterministic_and_resets(cuda):
-    """K2, K11 and K12 sum their slices in the kernel (K1 in a reduce pass):
+    """K2, K11 and K12 sum their slices in the kernel (K1, K6 and K7 in a
+    reduce pass):
     two calls back to back give the same bits, and a call after a call of
     another shape still matches (the arrival counters are back at 0)."""
     cases = _fused_cases(cuda)
@@ -395,7 +413,8 @@ def test_sass_holds_tensor_cores_and_async_copies(cuda):
     """K11's compiled code multiplies on the tensor cores in TF32, three
     products a step (3xTF32, no single-pass path); K2's streams A with
     asynchronous copies (LDGSTS); K1's ring kernel (16 and 32 batch rows)
-    bulk-copies its tiles (UBLKCP); K12 copies with cp.async."""
+    bulk-copies its tiles (UBLKCP); K12 and K6's 8-row ring copy with
+    cp.async."""
     from tpusparse_torch.kernels import _build
     sass = _sass_by_function(_build.build())
     mxu = {k: v for k, v in sass.items() if "sell_mxu_kernel" in k}
@@ -414,6 +433,10 @@ def test_sass_holds_tensor_cores_and_async_copies(cuda):
     for name, text in ring.items():        # bulk-copied tiles
         assert "UBLKCP" in text, name
     for name, text in bell.items():        # words, x and values by cp.async
+        assert "LDGSTS" in text, name
+    ring6 = {k: v for k, v in sass.items() if "bsr_kernelILi8" in k}
+    assert len(ring6) == 1, sorted(sass)
+    for name, text in ring6.items():       # K6's blocks and x by cp.async
         assert "LDGSTS" in text, name
 
 
@@ -602,15 +625,26 @@ def _blocky(name):
     return generators.random_sparse_matrix(m, n, density=0.001, seed=seed)
 
 
-@pytest.mark.parametrize("batch", [1, 3, 8])
-@pytest.mark.parametrize("name,block_m", [("pruned", 128), ("pruned", 64),
-                                          ("odd", 128), ("odd", 24),
-                                          ("gaps", 128), ("sparse", 8),
-                                          ("full", 128)])
-def test_bsr_kernel(cuda, name, block_m, batch):
-    """K6, zero blocks (empty groups, padding) included."""
+# batch sizes of K6 and K7: every batch tile (1, 2, 4, 8 rows), a partial
+# tile, and 2 tiles (9, 16) past the 8 rows any path runs
+BLOCK_BATCHES = [1, 2, 3, 5, 8, 9, 16]
+
+
+@pytest.mark.parametrize("batch", BLOCK_BATCHES)
+@pytest.mark.parametrize("name,block_m,ldx", [
+    ("pruned", 128, None), ("pruned", 64, None), ("pruned", 512, None),
+    ("pruned", 40, 300), ("odd", 128, None), ("odd", 24, None),
+    ("odd", 40, 150), ("gaps", 128, None), ("gaps", 8, None),
+    ("sparse", 8, None), ("full", 128, None), ("full", 512, None)])
+def test_bsr_kernel(cuda, name, block_m, ldx, batch):
+    """K6 at block_m 8-512 (part-tile items and items of several blocks),
+    zero blocks (empty groups, padding) included, x narrower than the packed
+    rows (``ldx``), n off the 128 grid ("odd"): against its plain version,
+    the oracle and itself on a second call (the same bits)."""
     a = _blocky(name)
     x = generators.random_sparse_batch(batch, a.shape[0], 0.5, seed=7)
+    if ldx is not None:
+        x = np.ascontiguousarray(x[:, :ldx])
     f = BsrMatrix.from_dense(a, block_m=block_m, device=cuda)
     assert f.bi.shape[0] > f.n_real or name not in ("gaps", "sparse")
     xt = torch.from_numpy(x).to(cuda)
@@ -620,13 +654,29 @@ def test_bsr_kernel(cuda, name, block_m, batch):
     torch.cuda.set_sync_debug_mode("error")
     try:
         y = bsr_spmm(*args, n_padded=f.padded[1], n=n, plan=f._work)
+        y2 = bsr_spmm(*args, n_padded=f.padded[1], n=n, plan=f._work)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    assert torch.equal(y, y2)
     _close(y, bsr_spmm_plain(*args, n_padded=f.padded[1], n=n), 1e-4)
     _close(bsr_spmm(*args, n_padded=f.padded[1], n=n), y, 0.0)  # own plan
-    _close(y, reference.sgemm_cpu(x, a), 1e-3)
+    xo = np.zeros((batch, a.shape[0]), np.float32)
+    xo[:, :x.shape[1]] = x
+    _close(y, reference.sgemm_cpu(xo, a), 1e-3)
     _close(f.spmm(_padded(x, f.padded[0], cuda)), y, 1e-4)
+
+
+@pytest.mark.parametrize("batch", [1, 5, 9])
+@pytest.mark.parametrize("block_m", [8, 128])
+def test_bsr_kernel_empty_pack(cuda, block_m, batch):
+    """No block at all: the second kernel writes every group's zeros."""
+    i32 = torch.zeros(0, dtype=torch.int32, device=cuda)
+    blocks = torch.zeros((0, block_m, 128), dtype=torch.float32, device=cuda)
+    x = torch.ones((batch, 256), device=cuda)
+    y = bsr_spmm(i32, i32, blocks, x, n_padded=384, n=300)
+    torch.cuda.synchronize()
+    assert y.shape == (batch, 300) and int(torch.count_nonzero(y)) == 0
 
 
 def _tcsr(name, expect_batch, dev, monkeypatch=None):
@@ -636,29 +686,102 @@ def _tcsr(name, expect_batch, dev, monkeypatch=None):
                                  device=dev)
 
 
-@pytest.mark.parametrize("batch", [1, 3, 8])
-@pytest.mark.parametrize("name", ["pruned", "odd", "gaps", "sparse", "full"])
+def _bsell_tiles(w, dev):
+    """Random (bj, bi)-sorted block-SELL tiles of width ``w`` over 5
+    windows and 3 groups (group 1 holds none), and the dense A (640, 384)
+    they add up to (repeated offsets add)."""
+    rng = np.random.default_rng(w)
+    nblk = 13
+    bj = np.sort(rng.choice([0, 2], nblk)).astype(np.int32)
+    bi = rng.integers(0, 5, nblk).astype(np.int32)
+    idx = rng.integers(0, 128, (nblk, w, 128)).astype(np.int8)
+    vals = (rng.uniform(-1, 1, (nblk, w, 128))
+            * (rng.random((nblk, w, 128)) < 0.7)).astype(np.float32)
+    a = np.zeros((640, 384), np.float64)
+    k, s, r = np.indices(vals.shape).reshape(3, -1)
+    np.add.at(a, (bi[k] * 128 + idx[k, s, r], bj[k] * 128 + r),
+              vals[k, s, r])
+    arrays = [torch.from_numpy(t).to(dev) for t in (bi, bj, idx, vals)]
+    return arrays, a.astype(np.float32)
+
+
+@pytest.mark.parametrize("batch", BLOCK_BATCHES)
+@pytest.mark.parametrize("name", ["pruned", "odd", "gaps", "sparse", "full",
+                                  "w1", "w8", "w88", "w128", "w88_narrow"])
 def test_bsell_kernel(cuda, name, batch):
-    """K7 on TCSR's SELL tier, zero tiles (empty groups, padding)
-    included."""
-    a = _blocky(name)
-    f = _tcsr(name, 1, cuda)
-    assert f.n_sell > 0
+    """K7 on TCSR's SELL tier, zero tiles (empty groups, padding) included,
+    and on random tiles of W 1-128 (items of a part of a tile and of up to
+    4 tiles, a group with no tile, x narrower than the windows): against
+    its plain version, the oracle and itself on a second call (the same
+    bits)."""
+    if name.startswith("w"):
+        (bi, bj, idx, vals), a = _bsell_tiles(int(name[1:].split("_")[0]),
+                                              cuda)
+        n_padded, f = 384, None
+        plan = bsell_plans(bj.cpu().numpy(), 3, vals.shape[1], cuda)
+    else:
+        a = _blocky(name)
+        f = _tcsr(name, 1, cuda)
+        assert f.n_sell > 0
+        bi, bj, idx, vals = f.s_bi, f.s_bj, f.idx, f.vals
+        n_padded, plan = f.padded[1], f._work
     x = generators.random_sparse_batch(batch, a.shape[0], 0.5, seed=8)
-    xt = torch.from_numpy(x).to(cuda)
-    args = (f.s_bi, f.s_bj, f.idx, f.vals, xt)
+    if name.endswith("narrow"):
+        x[:, 500:] = 0                  # x ends inside the last window
+        xt = torch.from_numpy(np.ascontiguousarray(x[:, :500])).to(cuda)
+    else:
+        xt = torch.from_numpy(x).to(cuda)
+    args = (bi, bj, idx, vals, xt)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        y = bsell_spmm(*args, n_padded=f.padded[1], plan=f._work)
+        y = bsell_spmm(*args, n_padded=n_padded, plan=plan)
+        y2 = bsell_spmm(*args, n_padded=n_padded, plan=plan)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    _close(y, bsell_spmm_plain(*args, n_padded=f.padded[1]), 1e-4)
-    _close(bsell_spmm(*args, n_padded=f.padded[1]), y, 0.0)      # own plan
-    if f.bsr is None:
+    assert torch.equal(y, y2)
+    _close(y, bsell_spmm_plain(*args, n_padded=n_padded), 1e-4)
+    _close(bsell_spmm(*args, n_padded=n_padded), y, 0.0)      # own plan
+    if f is None or f.bsr is None:
         _close(y[:, :a.shape[1]], reference.sgemm_cpu(x, a), 1e-3)
-    _close(f.spmm(xt), reference.sgemm_cpu(x, a), 1e-3)
+    if f is not None:
+        _close(f.spmm(xt), reference.sgemm_cpu(x, a), 1e-3)
+
+
+@pytest.mark.parametrize("batch", [1, 5, 9])
+def test_bsell_kernel_empty_pack(cuda, batch):
+    """No tile at all: the second kernel writes every group's zeros."""
+    i32 = torch.zeros(0, dtype=torch.int32, device=cuda)
+    idx = torch.zeros((0, 8, 128), dtype=torch.int8, device=cuda)
+    vals = torch.zeros((0, 8, 128), dtype=torch.float32, device=cuda)
+    x = torch.ones((batch, 256), device=cuda)
+    y = bsell_spmm(i32, i32, idx, vals, x, n_padded=384, n=300)
+    torch.cuda.synchronize()
+    assert y.shape == (batch, 300) and int(torch.count_nonzero(y)) == 0
+
+
+def test_rsell_bits_hold_after_block_kernels(cuda):
+    """K4 shares the group reduce pass with K6 and K7 (which run it at 1-4
+    batch rows): after K6 and K7 calls of other shapes, K4 gives the same
+    bits on two calls."""
+    r = RsellMatrix.from_dense(_skewed("run"), device=cuda)
+    x = torch.from_numpy(generators.random_sparse_batch(
+        3, r.shape[0], 0.5, seed=11)).to(cuda)
+    before = rsell_spmm(r.cj, r.ct, r.idx, r.vals, x, n_padded=r.padded[1],
+                        plan=r._work)
+    f = BsrMatrix.from_dense(_blocky("pruned"), block_m=64, device=cuda)
+    t = _tcsr("gaps", 1, cuda)
+    for batch in (1, 8, 9):
+        bsr_spmm(f.bi, f.bj, f.blocks, torch.ones((batch, 512), device=cuda),
+                 n_padded=1024, plan=f._work)
+        bsell_spmm(t.s_bi, t.s_bj, t.idx, t.vals,
+                   torch.ones((batch, 256), device=cuda),
+                   n_padded=t.padded[1], plan=t._work)
+    after = [rsell_spmm(r.cj, r.ct, r.idx, r.vals, x, n_padded=r.padded[1],
+                        plan=r._work) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(after[0], after[1]) and torch.equal(after[0], before)
 
 
 @pytest.mark.parametrize("batch", [1, 3, 8])

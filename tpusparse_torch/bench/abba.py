@@ -5,6 +5,7 @@ Usage (on the card, from the repository root):
 
     python -m tpusparse_torch.bench.abba --parent DIR [--points K1,K12]
         [--variant DIR ...] [--out FILE]
+    python -m tpusparse_torch.bench.abba --parent DIR --points K6,K7
 
 DIR holds an earlier version's ``csrc`` sources (for instance unpacked with
 ``git archive <commit> tpusparse_torch/csrc``). The sources of the chosen
@@ -12,22 +13,32 @@ points' kernels are built with the package's nvcc flags into
 ``DIR/_build/libparent.so``. K1 (``sell_spmv.cu``) and K12
 (``bell_spmv.cu``) are called through the C interface they had before
 their one-launch redesign: no arrival counters, the slices of
-``_build.split_work`` added by a second, reduce kernel. K2 (``dense.cu``)
-and K11 (``sell_mxu_spmm.cu``) are called through the current interface.
-The new kernels are the package's own.
+``_build.split_work`` added by a second, reduce kernel. K6
+(``bsr_spmv.cu``) and K7 (``bsell_spmv.cu``) keep their C interface; the
+parent is given the plan it was built for, one-tile items of
+``rsell_spmv.device_work_plan``. K2 (``dense.cu``) and K11
+(``sell_mxu_spmm.cu``) are called through the current interface. The new
+kernels are the package's own.
 
 Points: K1 on the headline workload (4096^2, d = 0.5, seed 0) at B = 1 and
 8 and at the six floors points (``bench.report``: 4096^2, d in {0.1, 0.5},
 B in {1, 8, 32}); K12 on the headline workload's BELL pack (block_m 512)
 at B = 1 and 8; K2 on the headline workload at B = 1 and 8; K11 at the six
-floors points. ``--points`` picks kernels (default K1,K12). At each point
+floors points; K6 on blockpruned-4096 (``block_pruned_matrix(4096, 4096,
+block=128, keep_frac=0.3, fill=0.5, seed=9)``) as BSR at block_m 128 and
+on the headline workload at block_m 512 (the full registry's ``bsr_cuda``),
+at B = 1 and 8, beside K2 and cuBLAS on the same dense A; K7 on
+blockpruned-4096's SELL tier (TCSR packed for B = 1) and on the headline
+workload's TCSR pack (SELL tier only, the full registry's ``tcsr_cuda``),
+at B = 1 and 8, beside K1 on the SELL pack of the same A and cuSPARSE.
+``--points`` picks kernels (default K1,K12). At each point
 it checks parent and new against each other (atol 1e-4), then times A, B,
 B, A with ``bench.runner``'s ``device_time`` (median of 20 calls,
-read-flushed L2), then the library call (cuSPARSE CSR for K1, K11 and K12,
-cuBLAS for K2) once, and each contestant's device time in CUDA kernels per
+read-flushed L2), then the library call (cuSPARSE CSR for K1, K7, K11
+and K12, cuBLAS for K2 and K6) and the yardstick kernels (K2 for K6, K1
+for K7) once each, and each contestant's device time in CUDA kernels per
 call (``bench.profile.kernel_times``: ``torch.profiler`` after the same L2
-flush). It then
-counts, with ``cuobjdump -sass``, the tensor-core (HMMA), asynchronous-copy
+flush). It then counts, with ``cuobjdump -sass``, the tensor-core (HMMA), asynchronous-copy
 (LDGSTS, UBLKCP) and shared-atomic instructions of each kernel of both
 libraries. It prints a Markdown table headed by the card's name and power
 limit, and writes every number as JSON to FILE. Each ``--variant DIR`` (a
@@ -55,19 +66,26 @@ from tpusparse_torch.bench.profile import kernel_times
 from tpusparse_torch.bench.roofline import card_info
 from tpusparse_torch.bench.runner import device_time
 from tpusparse_torch.formats.bell import BellMatrix
+from tpusparse_torch.formats.bsr import BsrMatrix
 from tpusparse_torch.formats.sell import SellMatrix
+from tpusparse_torch.formats.tcsr import TcsrMatrix
 from tpusparse_torch.kernels import _build
 from tpusparse_torch.kernels.bell_spmv import bell_spmm
+from tpusparse_torch.kernels.bsell_spmv import bsell_spmm
+from tpusparse_torch.kernels.bsr_spmv import bsr_spmm
 from tpusparse_torch.kernels.dense import dense_cuda, dense_torch
+from tpusparse_torch.kernels.rsell_spmv import device_work_plan
 from tpusparse_torch.kernels.sell_mxu_spmm import sell_mxu_spmm
 from tpusparse_torch.kernels.sell_spmv import _VALS_KIND, sell_spmm
 from tpusparse_torch.testing import generators
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # The kernels' sources and the C interface each is called through in the
-# parent: K1 and K12 as before their one-launch redesign, K2 and K11 as now.
+# parent: K1 and K12 as before their one-launch redesign, K2, K11, K6 and
+# K7 as now.
 SOURCES = {"K1": "sell_spmv.cu", "K12": "bell_spmv.cu", "K2": "dense.cu",
-           "K11": "sell_mxu_spmm.cu"}
+           "K11": "sell_mxu_spmm.cu", "K6": "bsr_spmv.cu",
+           "K7": "bsell_spmv.cu"}
 PARENT_SIGNATURES = {
     # idx, vals, vals_kind, x, scales, part, y, nb, nt, w, batch, ldx,
     # slices, per_slice, n, device, stream
@@ -75,10 +93,13 @@ PARENT_SIGNATURES = {
     # bitmap, vals, x, part, y, nb, mb, block_m, w, batch, ldx, slices,
     # per_slice, n, device, stream
     "K12": ("tps_bell_spmm", [_P] * 5 + [_I] * 10 + [_P]),
+    "K6": ("tps_bsr_spmm", _build._SIGNATURES["tps_bsr_spmm"]),
+    "K7": ("tps_bsell_spmm", _build._SIGNATURES["tps_bsell_spmm"]),
     "K2": ("tps_dense_spmm", _build._SIGNATURES["tps_dense_spmm"]),
     "K11": ("tps_sell_mxu_spmm", _build._SIGNATURES["tps_sell_mxu_spmm"]),
 }
-SASS_NAMES = r"sell_ring|sell_partial|bell_kernel|bell_partial|dense|mxu"
+SASS_NAMES = (r"sell_ring|sell_partial|bell_kernel|bell_partial|dense|mxu"
+              r"|bsr|bsell")
 
 
 def build_other(src: Path, stem: str, kernels) -> Path:
@@ -175,15 +196,93 @@ def parent_bell(so, f: BellMatrix, x, n):
     return y
 
 
+def parent_bsr(so, f: BsrMatrix, x, n, plan):
+    """The earlier K6 with its plan: one-tile items, then the group
+    reduce kernel."""
+    dev = x.device
+    items, gptr = plan
+    batch = x.shape[0]
+    part = torch.empty((items.shape[0], batch, 128), dtype=torch.float32,
+                       device=dev)
+    y = torch.empty((batch, n), dtype=torch.float32, device=dev)
+    _check(so.tps_bsr_spmm(
+        items.data_ptr(), gptr.data_ptr(), f.bi.data_ptr(),
+        f.blocks.data_ptr(), x.data_ptr(), part.data_ptr(), y.data_ptr(),
+        items.shape[0], f.block_m, batch, x.shape[1], n, dev.index,
+        _build.stream_of(x)), "parent K6")
+    return y
+
+
+def parent_bsell(so, t: TcsrMatrix, x, n, plan):
+    """The earlier K7 with its plan: one-tile items, then the group reduce
+    kernel."""
+    dev = x.device
+    items, gptr = plan
+    batch = x.shape[0]
+    part = torch.empty((items.shape[0], batch, 128), dtype=torch.float32,
+                       device=dev)
+    y = torch.empty((batch, n), dtype=torch.float32, device=dev)
+    _check(so.tps_bsell_spmm(
+        items.data_ptr(), gptr.data_ptr(), t.s_bi.data_ptr(),
+        t.idx.data_ptr(), t.vals.data_ptr(), x.data_ptr(), part.data_ptr(),
+        y.data_ptr(), items.shape[0], t.w, batch, x.shape[1], n, dev.index,
+        _build.stream_of(x)), "parent K7")
+    return y
+
+
 def _headline_x(b: int, dev) -> torch.Tensor:
     x = (generators.random_sparse_vector(4096, 0.5, 0)[None, :]
          if b == 1 else generators.random_sparse_batch(b, 4096, 0.5, 0))
     return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
 
+def block_points(dev, parent, kernels, a, a_dev, at_csr, heads):
+    """The K6 and K7 points: (name, parent, new, library, {yardstick:
+    call})."""
+    out = []
+    blocky = generators.block_pruned_matrix(4096, 4096, block=128,
+                                            keep_frac=0.3, fill=0.5, seed=9)
+    b_dev = torch.from_numpy(blocky).to(dev)
+    b_csr = torch.from_numpy(np.ascontiguousarray(blocky.T)).to(dev) \
+        .to_sparse_csr()
+    wls = [("blockpruned", blocky, b_dev, b_csr, 128),
+           ("headline", a, a_dev, at_csr, 512)]
+    for where, mat, m_dev, m_csr, block_m in wls:
+        if "K6" in kernels:
+            f = BsrMatrix.from_dense(mat, block_m=block_m, device=dev)
+            plan = device_work_plan(f.bj.cpu().numpy(), 32, dev)
+            for b, xt in heads:
+                new = (lambda f=f, xt=xt: bsr_spmm(
+                    f.bi, f.bj, f.blocks, xt, n_padded=4096, plan=f._work))
+                out.append((
+                    f"K6 {where} block_m={block_m} B={b}",
+                    lambda f=f, xt=xt, plan=plan: parent_bsr(parent, f, xt,
+                                                             4096, plan),
+                    new, lambda xt=xt, m_dev=m_dev: dense_torch(m_dev, xt),
+                    {"K2": lambda xt=xt, m_dev=m_dev: dense_cuda(m_dev, xt)}))
+        if "K7" in kernels:
+            t = TcsrMatrix.from_dense(mat, expect_batch=1, device=dev)
+            if t.bsr is not None:
+                raise AssertionError(f"{where}: TCSR holds a dense tier")
+            s = SellMatrix.from_dense(mat, device=dev)
+            plan = device_work_plan(t.s_bj.cpu().numpy(), 32, dev)
+            for b, xt in heads:
+                new = (lambda t=t, xt=xt: bsell_spmm(
+                    t.s_bi, t.s_bj, t.idx, t.vals, xt, n_padded=4096,
+                    plan=t._work))
+                out.append((
+                    f"K7 {where} W={t.w} B={b}",
+                    lambda t=t, xt=xt, plan=plan: parent_bsell(parent, t, xt,
+                                                               4096, plan),
+                    new, lambda xt=xt, m_csr=m_csr: m_csr @ xt.T,
+                    {"K1": lambda s=s, xt=xt: sell_spmm(s.idx, s.vals, xt,
+                                                        n=4096)}))
+    return out
+
+
 def points(dev, parent, kernels):
-    """(name, parent, new, library) for every point of ``kernels``; ``new``
-    calls the package's wrappers."""
+    """(name, parent, new, library, {yardstick: call}) for every point of
+    ``kernels``; ``new`` calls the package's wrappers."""
     out = []
     a = generators.random_sparse_matrix(4096, 4096, density=0.5, seed=0)
     a_dev = torch.from_numpy(a).to(dev)
@@ -232,7 +331,9 @@ def points(dev, parent, kernels):
                         lambda s=s, xt=xt: sell_mxu_spmm(s.idx, s.vals, xt,
                                                          n=4096),
                         lambda xt=xt, csr=csr: csr @ xt.T))
-    return out
+    if "K6" in kernels or "K7" in kernels:
+        out += block_points(dev, parent, kernels, a, a_dev, at_csr, heads)
+    return [p if len(p) == 5 else p + ({},) for p in out]
 
 
 def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
@@ -260,7 +361,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, required=True)
     ap.add_argument("--points", default="K1,K12",
-                    help="kernels to compare, of K1, K12, K2, K11")
+                    help="kernels to compare, of K1, K12, K2, K11, K6, K7")
     ap.add_argument("--variant", type=Path, action="append", default=[],
                     help="a tree with the current C interface, timed as "
                     "a further contestant (repeatable; not checked)")
@@ -277,7 +378,7 @@ def main() -> int:
     parent_lib = build_other(args.parent, "parent", kernels)
     parent_sigs = dict(PARENT_SIGNATURES[k] for k in kernels)
     parent = load(parent_lib, parent_sigs)
-    if "K2" in kernels or "K11" in kernels:   # through(): the current interface
+    if {"K2", "K11", "K6", "K7"} & set(kernels):   # the current interface
         parent = _Variant(parent, parent_sigs)
     names = [PARENT_SIGNATURES[k][0] for k in kernels]
     mine = {k: _build._SIGNATURES[k] for k in names}
@@ -285,7 +386,7 @@ def main() -> int:
                                        mine), names))
                 for v in args.variant]
     rows = []
-    for name, old, new, lib in points(dev, parent, kernels):
+    for name, old, new, lib, yard in points(dev, parent, kernels):
         yp, yn = old(), new()
         torch.cuda.synchronize()
         diff = float((yp.double() - yn.double()).abs().max())
@@ -296,13 +397,15 @@ def main() -> int:
         order = order + order[::-1]
         t = [device_time(f).seconds * 1e6 for f in order]
         lib_us = device_time(lib).seconds * 1e6
+        yard_us = {k: device_time(f).seconds * 1e6 for k, f in yard.items()}
         kern_us = {label: sum(kernel_times(lambda f, xx, fn=fn: fn(), None,
                                            yp).values())
-                   for label, fn in [("parent", old), ("new", new)] + extra}
+                   for label, fn in [("parent", old), ("new", new)] + extra
+                   + list(yard.items())}
         row = {"point": name, "A1": t[0], "B1": t[1], "B2": t[-2], "A2": t[-1],
                "parent_us": (t[0] + t[-1]) / 2, "new_us": (t[1] + t[-2]) / 2,
-               "library_us": lib_us, "max_abs_diff": diff,
-               "kernel_us": kern_us,
+               "library_us": lib_us, "yardsticks_us": yard_us,
+               "max_abs_diff": diff, "kernel_us": kern_us,
                "variants_us": {vn: (t[2 + i] + t[-3 - i]) / 2
                              for i, (vn, _) in enumerate(extra)}}
         row["new_over_parent"] = row["new_us"] / row["parent_us"]
@@ -311,12 +414,14 @@ def main() -> int:
     sass = {"parent": sass_counts(parent_lib),
             "new": sass_counts(_build.build())}
     print(f"\n## A B B A on {card['line']} (us per call)\n")
-    print("| point | A1 | B1 | B2 | A2 | new / parent | library | variants | "
-          "kernels |\n|---|---|---|---|---|---|---|---|---|")
+    print("| point | A1 | B1 | B2 | A2 | new / parent | library | yardsticks "
+          "| variants | kernels |\n|---|---|---|---|---|---|---|---|---|---|")
     for r in rows:
         print(f"| {r['point']} | {r['A1']:.2f} | {r['B1']:.2f} | "
               f"{r['B2']:.2f} | {r['A2']:.2f} | {r['new_over_parent']:.3f} "
               f"| {r['library_us']:.2f} | "
+              + ", ".join(f"{k} {t:.2f}"
+                          for k, t in r["yardsticks_us"].items()) + " | "
               + ", ".join(f"{v} {t:.2f}" for v, t in r["variants_us"].items())
               + " | " + ", ".join(f"{k} {t:.2f}"
                                   for k, t in r["kernel_us"].items()) + " |")

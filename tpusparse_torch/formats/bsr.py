@@ -18,8 +18,7 @@ import torch
 
 from tpusparse_torch.formats.csr import CsrMatrix, _host_numpy
 from tpusparse_torch.formats.sell import as_input
-from tpusparse_torch.kernels.bsr_spmv import bsr_spmm
-from tpusparse_torch.kernels.rsell_spmv import device_work_plan
+from tpusparse_torch.kernels.bsr_spmv import bsr_plans, bsr_spmm
 from tpusparse_torch.utils import resolve_device, round_up
 
 _LANES = 128
@@ -142,9 +141,9 @@ class BsrMatrix:
         # stored blocks before zero padding
         self.n_real = n_real if n_real is not None else int(blocks.shape[0])
         dev = self.device
-        # K6's work plan, built once from the host copy of bj
-        self._work = None if dev.type != "cuda" else device_work_plan(
-            bj.cpu().numpy(), self.padded[1] // _LANES, dev)
+        # K6's work plans, built once from the host copy of bj
+        self._work = None if dev.type != "cuda" else bsr_plans(
+            bj.cpu().numpy(), self.padded[1] // _LANES, block_m, dev)
 
     @property
     def device(self) -> torch.device:

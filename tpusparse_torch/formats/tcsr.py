@@ -25,9 +25,8 @@ import torch
 from tpusparse_torch.formats.bsr import BsrMatrix, bsr_pack_blocks
 from tpusparse_torch.formats.csr import CsrMatrix, segment_ranks
 from tpusparse_torch.formats.sell import _sorted_rows, as_input
-from tpusparse_torch.kernels.bsell_spmv import bsell_spmm
+from tpusparse_torch.kernels.bsell_spmv import bsell_plans, bsell_spmm
 from tpusparse_torch.kernels.bsr_spmv import bsr_spmm
-from tpusparse_torch.kernels.rsell_spmv import device_work_plan
 from tpusparse_torch.utils import resolve_device, round_up
 
 _LANES = 128
@@ -199,10 +198,9 @@ class TcsrMatrix:
         self.n_sell = n_sell           # real tiles of each tier
         self.n_dense = n_dense
         dev = self.device
-        # K7's work plan, built once from the host copy of s_bj
+        # K7's work plans, built once from the host copy of s_bj
         self._work = None if dev.type != "cuda" or not vals.shape[0] else \
-            device_work_plan(s_bj.cpu().numpy(), self.padded[1] // _LANES,
-                             dev)
+            bsell_plans(s_bj.cpu().numpy(), self.padded[1] // _LANES, w, dev)
 
     @property
     def device(self) -> torch.device:

@@ -6,8 +6,12 @@ _bsell_kernel_wide`` and ``_bsell_kernel_scan`` (tile body
 ``y[b, bj[k]*128 + r] += sum_s vals[k, s, r] * x[b, bi[k]*128 + idx[k, s, r]]``
 over every (W x 128) tile k. The result is ``(B, n)``: the TPU kernel's
 ``(B*8, N)`` slab (row b*8 holding y_b) and its ones-matrix MXU reduction
-are not part of the port. The tile list is cut into work items and reduced
-per group as K6's is. Zero tiles (idx 0, vals 0) add 0.
+are not part of the port. The tiles are one stream of W-slot rows, cut
+once per pack into part-tile items of one output group, each within
+``MAX_TILES`` tiles (``block_items``, ``bsell_plans``): a block stages the
+item's x windows once and streams its slot rows (``csrc/bsell_spmv.cu``),
+and a second kernel adds each group's partials in a fixed order, as K6's.
+Zero tiles (idx 0, vals 0) add 0.
 
 ``bsell_spmm`` launches the CUDA kernel for CUDA tensors and uses
 ``bsell_spmm_plain`` only for CPU tensors.
@@ -15,12 +19,30 @@ per group as K6's is. Zero tiles (idx 0, vals 0) add 0.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from tpusparse_torch.kernels import _build
-from tpusparse_torch.kernels.rsell_spmv import resolve_plan
+from tpusparse_torch.kernels import _build, block_items
+from tpusparse_torch.kernels.dense import batch_tile
 
 _LANES = 128
+# csrc/bsell_spmv.cu kMaxWin: the x windows a block stages for its item
+MAX_TILES = 4
+# By batch tile: blocks resident an SM (the kernel's __launch_bounds__) and
+# the slot-row quantum of an item (one row a warp).
+SHAPES = {1: (8, 4), 2: (8, 4), 4: (6, 4), 8: (8, 4)}
+
+
+def bsell_smem_bytes(bt: int) -> int:
+    """Shared memory of a K7 block (``kBsellSmem``): the item's x windows,
+    then the 4 warps' sums."""
+    return max(MAX_TILES, 4) * bt * _LANES * 4
+
+
+def bsell_plans(bj: np.ndarray, nb: int, w: int,
+                device: torch.device) -> dict[int, block_items.ItemPlan]:
+    """K7's work plans of a pack, one per launch shape, on ``device``."""
+    return block_items.device_plans(bj, nb, w, device, SHAPES, MAX_TILES)
 
 
 def bsell_spmm_plain(bi: torch.Tensor, bj: torch.Tensor, idx: torch.Tensor,
@@ -47,17 +69,18 @@ def bsell_spmm_plain(bi: torch.Tensor, bj: torch.Tensor, idx: torch.Tensor,
 def bsell_spmm(bi: torch.Tensor, bj: torch.Tensor, idx: torch.Tensor,
                vals: torch.Tensor, x: torch.Tensor, *, n_padded: int,
                n: int | None = None,
-               plan: tuple[torch.Tensor, torch.Tensor] | None = None
+               plan: dict[int, block_items.ItemPlan] | None = None
                ) -> torch.Tensor:
     """K7: bi, bj (nblk,) int32 (bj the output group, bi the contraction
     window), idx (nblk, W, 128) int8, vals (nblk, W, 128) fp32, x (B, m)
     fp32 (columns past m read as 0) -> (B, n) fp32, n <= n_padded (default
-    n_padded). ``plan``: the ``device_work_plan`` of bj, built here (with a
-    host copy of bj) when None."""
+    n_padded). ``plan``: the ``bsell_plans`` of bj, built here (with a host
+    copy of bj) when None."""
     if x.device.type == "cpu":
         return bsell_spmm_plain(bi, bj, idx, vals, x, n_padded=n_padded, n=n)
     nblk = vals.shape[0]
     if vals.ndim != 3 or vals.shape[2] != _LANES or idx.shape != vals.shape \
+            or vals.shape[1] == 0 \
             or idx.dtype != torch.int8 or vals.dtype != torch.float32 \
             or bi.shape != (nblk,) or bj.shape != (nblk,) \
             or bi.dtype != torch.int32 or bj.dtype != torch.int32:
@@ -72,17 +95,26 @@ def bsell_spmm(bi: torch.Tensor, bj: torch.Tensor, idx: torch.Tensor,
     n = n_padded if n is None else n
     if n_padded % _LANES or not 0 <= n <= n_padded:
         raise ValueError(f"bsell_spmm: n={n}, n_padded={n_padded}")
+    w = vals.shape[1]
+    block_items.check_rows("bsell_spmm", nblk, w)
     dev = _build.require_cuda("bsell_spmm", bi, idx, vals, x,
                               aligned=(idx, vals))
-    items, gptr = resolve_plan("bsell_spmm", plan, bj, nb, dev)
-    batch, nitems = x.shape[0], items.shape[0]
+    batch = x.shape[0]
+    bt = batch_tile(batch)
+    block_items.check_smem("bsell_spmm", bsell_smem_bytes(bt),
+                           _build.smem_limit(dev))
+    items, gptr = block_items.resolve("bsell_spmm", plan, bj, nb, w, bt, dev,
+                                      SHAPES, MAX_TILES)
+    nitems = items.shape[0]
+    if x.shape[1] == 0:             # no row of x: every product reads 0
+        x = x.new_zeros((batch, 1))
     part = torch.empty((nitems, batch, _LANES), dtype=torch.float32,
                        device=dev)
     y = torch.empty((batch, n), dtype=torch.float32, device=dev)
     rc = _build.lib().tps_bsell_spmm(
         items.data_ptr(), gptr.data_ptr(), bi.data_ptr(), idx.data_ptr(),
         vals.data_ptr(), x.data_ptr(), part.data_ptr(), y.data_ptr(), nitems,
-        vals.shape[1], batch, x.shape[1], n, dev.index, _build.stream_of(x))
+        w, batch, x.shape[1], n, dev.index, _build.stream_of(x))
     _build.check(rc, "bsell_spmm")
     bsell_spmm.launches += 1
     return y

@@ -93,13 +93,18 @@ and then the JAX package's full bench registry and its floors study:
     just before each entry and read just after: ``bell_cuda`` must launch
     K12, ``sell_binned_cuda`` K1 and K5, ``bsr_cuda`` K6, ``tcsr_cuda`` K7
     and/or K6, ``rsell_cuda`` K4, ``asp_cuda`` K9, and ``ell_torch`` none;
-    then K6 on ``bsr_cuda``'s pack (block_m 512) and K7 on ``tcsr_cuda``'s
-    (its SELL tier), where 48 of their 49 counted launches land, against
-    their plain versions and the oracle at B = 1 and 8, timed beside
-    cuBLAS and K2 on the same dense A (K6) and cuSPARSE and K1 on its SELL
-    pack (K7): the ``by_workload`` of their rows (K6 and K7 walk the pack
-    as part-tile work items, sized to fill the card, and a second kernel
-    sums each group's items in a fixed order);
+    then K6 on ``bsr_cuda``'s pack (block_m 512), K7 on ``tcsr_cuda``'s
+    (its SELL tier), K4 on ``rsell_cuda``'s and K9 on ``asp_cuda``'s (its
+    full plan), where 48 of their 49 counted launches land, against their
+    plain versions and the oracle at B = 1 and 8, timed beside cuBLAS and
+    K2 on the same dense A (K6, K9) and cuSPARSE and K1 on its SELL pack
+    (K7, K4): the ``by_workload`` of their rows (K6, K7 and K4 walk the
+    pack as work items, sized to fill the card, and a second kernel sums
+    each group's items in a fixed order; K9 is one launch, a cluster of
+    blocks a column strip summing its slices in distributed shared
+    memory); K4 and K9 must give the same bits on two calls, and K9 must
+    agree through a static, a device and an explicit plan and give 0 on
+    an all-zero X;
 14. holds K12 at B = 1 and 8 against its plain version and the oracle,
     timed beside its plain version and cuSPARSE CSR (one launch a call: a
     column's bitmap decoded once into a list of its live positions, then
@@ -1035,8 +1040,9 @@ def full_registry_path() -> tuple[dict[str, dict[str, int]], dict]:
 
 
 def registry_block_cases(a, packs, dev):
-    """K6 and K7 on the full registry's own headline packs (``bsr_cuda`` at
-    block_m 512, ``tcsr_cuda``'s SELL tier), where 48 of each one's 49
+    """K6, K7, K4 and K9 on the full registry's own headline packs
+    (``bsr_cuda`` at block_m 512, ``tcsr_cuda``'s SELL tier, ``rsell_cuda``
+    (K4 alone), ``asp_cuda`` with its full plan), where 48 of each one's 49
     counted launches land: kernel, plain version, library call (cuBLAS,
     cuSPARSE CSR), and the yardstick kernel on the same A (K2 on the dense
     A, K1 on its SELL pack)."""
@@ -1046,9 +1052,36 @@ def registry_block_cases(a, packs, dev):
     at_csr = torch.from_numpy(np.ascontiguousarray(a.T)).to(dev) \
         .to_sparse_csr()
     b, t = packs["bsr_cuda"], packs["tcsr_cuda"]
+    r, f = packs["rsell_cuda"], packs["asp_cuda"]
     require(t.bsr is None and t.vals.shape[0] > 0,
             f"tcsr_cuda's headline pack: {t!r}")
     sell = SellMatrix.from_dense(a, device=dev)
+    np_ = r.padded[1]
+    plan = f._full_plan()
+    k = f._count(plan.numel())
+
+    def rsell_case(xt, y_ref):
+        args = (r.cj, r.ct, r.idx, r.vals, xt)
+        nbytes = r.device_bytes() + 4 * (xt.numel() + xt.shape[0] * np_)
+        want = y_ref
+        if r.perm_src is not None:          # the pack's column order
+            want = np.zeros((y_ref.shape[0], np_), np.float32)
+            want[:, r.inv_perm[:n]] = y_ref
+        return (lambda: rsell_spmm(*args, n_padded=np_,
+                                   n=np_ if r.perm_src is not None else n,
+                                   plan=r._work),
+                lambda: rsell_spmm_plain(
+                    *args, n_padded=np_,
+                    n=np_ if r.perm_src is not None else n),
+                cusparse(at_csr, xt), nbytes, 2 * nnz * xt.shape[0], want)
+
+    def asp_case(xt, y_ref):
+        nbytes = 4 * (plan.numel() * 128 * n + xt.numel() + xt.shape[0] * n
+                      + plan.numel() + 1)
+        return (lambda: asp_spmm(plan, k, f.a_pad, xt, n=n),
+                lambda: asp_spmm_plain(plan, k, f.a_pad, xt, n=n),
+                lambda: dense_torch(a_dev, xt), nbytes,
+                2 * plan.numel() * 128 * n * xt.shape[0], y_ref)
 
     def bsr_case(xt, y_ref):
         args = (b.bi, b.bj, b.blocks, xt)
@@ -1067,21 +1100,27 @@ def registry_block_cases(a, packs, dev):
                 lambda: bsell_spmm_plain(*args, n_padded=t.padded[1], n=n),
                 cusparse(at_csr, xt), nbytes, 2 * nnz * xt.shape[0], y_ref)
 
-    yardsticks = {"bsr_spmv": ("K2", lambda xt: dense_cuda(a_dev, xt)),
-                  "bsell_spmv": ("K1", lambda xt: sell_spmm(
-                      sell.idx, sell.vals, xt, n=n))}
-    return {"bsr_spmv": bsr_case, "bsell_spmv": bsell_case}, yardsticks
+    k1 = ("K1", lambda xt: sell_spmm(sell.idx, sell.vals, xt, n=n))
+    k2 = ("K2", lambda xt: dense_cuda(a_dev, xt))
+    yardsticks = {"bsr_spmv": k2, "bsell_spmv": k1, "rsell_spmv": k1,
+                  "asp_spmv": k2}
+    return ({"bsr_spmv": bsr_case, "bsell_spmv": bsell_case,
+             "rsell_spmv": rsell_case, "asp_spmv": asp_case}, yardsticks)
 
 
 def check_registry_blocks(a, packs, x1, x8, dev) -> dict[str, dict]:
-    """Phase 13b: K6 and K7 on the full registry's headline packs against
-    their plain versions and the oracle, timed beside the library call and
-    the yardstick kernel (K2 and cuBLAS for ``bsr_cuda``, K1 and cuSPARSE
-    for ``tcsr_cuda``)."""
-    print("-- K6 and K7 on the full registry's headline packs")
+    """Phase 13b: K6, K7, K4 and K9 on the full registry's headline packs
+    against their plain versions and the oracle, timed beside the library
+    call and the yardstick kernel (K2 and cuBLAS for ``bsr_cuda`` and
+    ``asp_cuda``, K1 and cuSPARSE for ``tcsr_cuda`` and ``rsell_cuda``);
+    then K4 and K9 give the same bits on two calls, and K9 runs through a
+    static, a device and an explicit plan and on an all-zero X."""
+    print("-- K6, K7, K4 and K9 on the full registry's headline packs")
     cases, yardsticks = registry_block_cases(a, packs, dev)
     res = check_kernels(cases, lambda x: reference.sgemm_cpu(x, a),
                         (x1[None, :], x8), dev)
+    labels = {"bsr_spmv": "bsr_cuda K6", "bsell_spmv": "tcsr_cuda K7",
+              "rsell_spmv": "rsell_cuda K4", "asp_spmv": "asp_cuda K9"}
     for batch, x in zip(BATCHES, (x1[None, :], x8)):
         xt = torch.from_numpy(x).to(dev)
         for name, (label, fn) in yardsticks.items():
@@ -1089,14 +1128,43 @@ def check_registry_blocks(a, packs, x1, x8, dev) -> dict[str, dict]:
             row["yardstick"] = label
             row["yardstick_ms"] = device_time(lambda: fn(xt),
                                               name=label).seconds * 1e3
-        k6, k7 = (res[k]["by_batch"][batch] for k in ("bsr_spmv",
-                                                       "bsell_spmv"))
-        print(f"   B={batch}: bsr_cuda K6 {k6['ms'] * 1e3:.2f} us | K2 "
-              f"{k6['yardstick_ms'] * 1e3:.2f} us | cuBLAS "
-              f"{k6['library_ms'] * 1e3:.2f} us; tcsr_cuda K7 "
-              f"{k7['ms'] * 1e3:.2f} us | K1 {k7['yardstick_ms'] * 1e3:.2f} "
-              f"us | cuSPARSE {k7['library_ms'] * 1e3:.2f} us")
+        print(f"   B={batch}: " + "; ".join(
+            f"{labels[k]} {r['ms'] * 1e3:.2f} us | {r['yardstick']} "
+            f"{r['yardstick_ms'] * 1e3:.2f} us | library "
+            f"{r['library_ms'] * 1e3:.2f} us"
+            for k, r in ((k, res[k]["by_batch"][batch]) for k in labels)))
+        for name in ("rsell_spmv", "asp_spmv"):      # the same bits twice
+            kern = cases[name](xt, reference.sgemm_cpu(x, a))[0]
+            y1, y2 = kern(), kern()
+            torch.cuda.synchronize()
+            require(torch.equal(y1, y2), f"{name} B={batch}: two calls "
+                                         "gave different bits")
+    check_asp_plans(packs["asp_cuda"], a, x8, dev)
     return res
+
+
+def check_asp_plans(f: AspMatrix, a, x8, dev) -> None:
+    """K9 on the headline ASP matrix through a static (host), a device and
+    an explicit plan (the windows in reverse, the zero window first) on an
+    X with a quarter of its windows live, and on an all-zero X."""
+    m, n = a.shape
+    live = (np.arange(m) // 128) % 4 == 2
+    xs = np.where(live, x8, 0.0).astype(np.float32)
+    xt = torch.from_numpy(xs).to(dev)
+    y_ref = reference.sgemm_cpu(xs, a)
+    explicit = np.r_[f.n_units, np.arange(f.n_units)[::-1]].astype(np.int32)
+    ys = {"static": spmm(f, xs), "device": spmm(f, xt),
+          "explicit": f.spmm(xs, plan=explicit)}
+    zero = spmm(f, torch.zeros_like(xt))
+    torch.cuda.synchronize()
+    errs = {k: max_err(y, y_ref) for k, y in ys.items()}
+    print(f"   asp_cuda K9 plans (1/4 windows live, B=8): |y-oracle| "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + f"; all-zero X -> zero: {int(torch.count_nonzero(zero)) == 0}")
+    require(max(errs.values()) <= ATOL and max_err(ys["device"],
+                                                   ys["static"]) <= PLAIN_ATOL,
+            f"asp_cuda K9 plans disagree: {errs}")
+    require(int(torch.count_nonzero(zero)) == 0, "K9: all-zero X gave y != 0")
 
 
 def bell_kernel_cases(a, dev):
@@ -1365,7 +1433,7 @@ def main() -> int:
         kernel_rows(bell_results, full_launches["bell_cuda"], {}) + \
         [k11_row]
     require(len(kernels) == 12, f"{len(kernels)} kernel rows, want 12")
-    for row in kernels:         # K6 and K7 where most of their launches land
+    for row in kernels:     # K6, K7, K4 and K9 where most of their launches land
         if row["name"] in registry_blocks:
             row["by_workload"] = {"full_registry_headline": {
                 str(b): r for b, r in

@@ -24,7 +24,12 @@ asynchronously and K1's ring kernel bulk-copies its tiles. K1 (every batch size 
 than the rows, one window, W = 8), K12 (every block_m it takes, W up to
 1024, empty and full columns), K6 (block_m 8-512) and K7 (W 1-128, both
 at B in {1, 2, 3, 5, 8, 9, 16}, empty packs) are also held to the same
-bits on two calls; K4 keeps its bits after K6 and K7 calls.
+bits on two calls; K4 keeps its bits after K6 and K7 calls. K9 (one
+kernel a call, summed across its cluster in distributed shared memory) is
+held at every cluster size, with lda % 4 != 0 and A off 16-byte
+alignment, through static, device and explicit plans; K4 (two kernels a
+call) with x off 4 columns and off 16-byte alignment; both to the same
+bits on two calls.
 """
 
 import functools
@@ -310,17 +315,26 @@ def test_fused_reduce_on_two_streams(cuda):
 
 
 def test_one_kernel_per_call(cuda):
-    """torch.profiler sees exactly one CUDA kernel per K2, K11 and K12 call
-    (the plain versions are not called here)."""
+    """torch.profiler sees exactly one CUDA kernel per K2, K11, K12 and K9
+    call (K9 sums its cluster's slices in the kernel), and two per K4 call
+    (its items, then the group sum); the plain versions are not called
+    here."""
     a, x, _ = _workload("full", 8)
     at, xt = torch.from_numpy(a).to(cuda), torch.from_numpy(x).to(cuda)
     f = SellMatrix.from_dense(a, device=cuda)
     g = BellMatrix.from_dense(a, device=cuda)
-    calls = {"dense": lambda: dense_cuda(at, xt),
-             "mxu": lambda: sell_mxu_spmm(f.idx, f.vals, xt, n=4096),
-             "bell": lambda: bell_spmm(g.bitmap, g.vals, xt,
-                                       block_m=g.block_m, n=4096)}
-    for name, call in calls.items():
+    h = AspMatrix.from_dense(a, device=cuda)
+    r = RsellMatrix.from_dense(a, device=cuda)
+    plan = h._full_plan()
+    k = h._count(plan.numel())
+    calls = {"dense": (1, lambda: dense_cuda(at, xt)),
+             "mxu": (1, lambda: sell_mxu_spmm(f.idx, f.vals, xt, n=4096)),
+             "bell": (1, lambda: bell_spmm(g.bitmap, g.vals, xt,
+                                           block_m=g.block_m, n=4096)),
+             "asp": (1, lambda: asp_spmm(plan, k, h.a_pad, xt, n=4096)),
+             "rsell": (2, lambda: rsell_spmm(r.cj, r.ct, r.idx, r.vals, xt,
+                                             n_padded=4096, plan=r._work))}
+    for name, (per_call, call) in calls.items():
         call()                               # counters allocated, warm
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CUDA]
@@ -330,7 +344,7 @@ def test_one_kernel_per_call(cuda):
             torch.cuda.synchronize()
         kernels = [e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
-        assert len(kernels) == 3, (name, [e.name for e in kernels])
+        assert len(kernels) == 3 * per_call, (name, [e.name for e in kernels])
 
 
 def test_sell_mxu_all_zero_matrix(cuda):
@@ -414,7 +428,9 @@ def test_sass_holds_tensor_cores_and_async_copies(cuda):
     products a step (3xTF32, no single-pass path); K2's streams A with
     asynchronous copies (LDGSTS); K1's ring kernel (16 and 32 batch rows)
     bulk-copies its tiles (UBLKCP); K12 and K6's 8-row ring copy with
-    cp.async."""
+    cp.async; K9 copies A's rows by 2D tensor copies (UTMALDG) on
+    mbarriers (SYNCS) where A allows it, copies x by cp.async and waits on
+    its cluster's barrier (UCGABAR)."""
     from tpusparse_torch.kernels import _build
     sass = _sass_by_function(_build.build())
     mxu = {k: v for k, v in sass.items() if "sell_mxu_kernel" in k}
@@ -438,6 +454,14 @@ def test_sass_holds_tensor_cores_and_async_copies(cuda):
     assert len(ring6) == 1, sorted(sass)
     for name, text in ring6.items():       # K6's blocks and x by cp.async
         assert "LDGSTS" in text, name
+    asp = {k: v for k, v in sass.items() if "asp_cluster_kernel" in k}
+    assert len(asp) == 8, sorted(sass)     # 4 batch tiles x bulk or not
+    for name, text in asp.items():         # x (and A) by cp.async
+        assert "LDGSTS" in text and "UCGABAR" in text, name
+        if "Lb1E" in name:                 # A's rows by a tensor copy
+            assert "UTMALDG" in text and "SYNCS" in text, name
+    rsell = {k: v for k, v in sass.items() if "rsell_" in k and "_kernel" in k}
+    assert len(rsell) == 4, sorted(sass)   # 2, 4 and 8 batch rows; one row
 
 
 @pytest.mark.parametrize("g", [1, 8])
@@ -567,6 +591,109 @@ def test_skew_device_paths_have_no_host_sync(cuda):
     _close(yr, reference.sgemm_cpu(x, a), 1e-3)
     _close(ya, reference.sgemm_cpu(x, a), 1e-3)
     assert int(torch.count_nonzero(y0)) == 0
+
+
+def _asp_direct(f, plan, k, x, n, cluster, a_pad=None):
+    """K9's C entry with a given cluster size (the wrapper picks one)."""
+    from tpusparse_torch.kernels import _build
+    a_pad = f.a_pad if a_pad is None else a_pad
+    y = torch.empty((x.shape[0], n), dtype=torch.float32, device=x.device)
+    _build.check(_build.lib().tps_asp_spmm(
+        plan.data_ptr(), k.data_ptr(), a_pad.data_ptr(), x.data_ptr(),
+        y.data_ptr(), *a_pad.shape, n, x.shape[0], x.shape[1], plan.numel(),
+        cluster, x.device.index, _build.stream_of(x)), "asp")
+    return y
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 9])
+@pytest.mark.parametrize("shape,block_n", [((300, 200), 2048),
+                                           ((200, 301), 301),
+                                           ((1000, 700), 128),
+                                           ((4096, 4096), 2048)])
+def test_asp_kernel_clusters_and_odd_shapes(cuda, shape, block_n, batch):
+    """K9 at every cluster size, with lda % 4 != 0 (block_n 301: the 4-byte
+    copy path), n off 128, x narrower than the rows, a static, a device and
+    an explicit plan, and an all-zero X: within 1e-4 of its plain version
+    and 1e-3 of the oracle, the same bits on two calls."""
+    m, n = shape
+    a = generators.random_sparse_matrix(m, n, density=0.5, seed=m + n)
+    x = generators.random_sparse_batch(batch, m, 0.5, seed=batch)
+    x[:, 128:256] = 0.0                       # a dead window
+    f = AspMatrix.from_dense(a, block_n=block_n, device=cuda)
+    xt = torch.from_numpy(np.ascontiguousarray(x[:, :m - 5])).to(cuda)
+    y_ref = reference.sgemm_cpu(np.where(np.arange(m) < m - 5, x, 0)
+                                .astype(np.float32), a)
+    plans = {"static": torch.from_numpy(f.plan(x)).to(cuda),
+             "device": device_group_plan(xt, f.n_units, 128),
+             "explicit": torch.tensor([f.n_units] + list(range(f.n_units)),
+                                      dtype=torch.int32, device=cuda)}
+    for what, plan in plans.items():
+        k = None
+        if what == "device":
+            plan, k = plan
+        k = f._count(plan.numel()) if k is None else k
+        want = asp_spmm_plain(plan, k, f.a_pad, xt, n=n)
+        for cluster in (1, 2, 4, 8):
+            y = _asp_direct(f, plan, k, xt, n, cluster)
+            y2 = _asp_direct(f, plan, k, xt, n, cluster)
+            torch.cuda.synchronize()
+            assert torch.equal(y, y2), (what, cluster)
+            _close(y, want, 1e-4)
+            _close(y, y_ref, 1e-3)
+        y = asp_spmm(plan, k, f.a_pad, xt, n=n)
+        _close(y, want, 1e-4)
+    zero = torch.zeros((batch, m), device=cuda)
+    plan, k = device_group_plan(zero, f.n_units, 128)
+    for cluster in (1, 8):
+        assert int(torch.count_nonzero(_asp_direct(f, plan, k, zero, n,
+                                                   cluster))) == 0
+
+
+def test_asp_kernel_misaligned_a(cuda):
+    """A view of A 4 bytes off 16-byte alignment takes the 4-byte copy
+    path in the same kernel."""
+    a = generators.random_sparse_matrix(512, 256, density=0.5, seed=5)
+    f = AspMatrix.from_dense(a, block_n=128, device=cuda)
+    buf = torch.empty(f.a_pad.numel() + 1, device=cuda)
+    a_off = buf[1:].view(f.a_pad.shape)
+    a_off.copy_(f.a_pad)
+    assert a_off.data_ptr() % 16 and a_off.is_contiguous()
+    x = torch.from_numpy(generators.random_sparse_batch(8, 512, 0.5,
+                                                        seed=6)).to(cuda)
+    plan = f._full_plan()
+    k = f._count(plan.numel())
+    for cluster in (1, 4):
+        y = _asp_direct(f, plan, k, x, 256, cluster, a_pad=a_off)
+        _close(y, asp_spmm_plain(plan, k, f.a_pad, x, n=256), 1e-4)
+    _close(asp_spmm(plan, k, a_off, x, n=256), reference.sgemm_cpu(
+        x.cpu().numpy(), a), 1e-3)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 3, 8, 9, 16])
+@pytest.mark.parametrize("name", ["run", "flat", "unsorted"])
+def test_rsell_kernel_x_layouts_and_bits(cuda, name, batch):
+    """K4 with x of a width off 4 columns and with x 4 bytes off 16-byte
+    alignment (its column-a-thread staging), and with x aligned (16-byte
+    staging): within 1e-4 of the plain version, the same bits on two
+    calls."""
+    a = _skewed(name)
+    m = a.shape[0]
+    f = RsellMatrix.from_dense(a, device=cuda)
+    x = generators.random_sparse_batch(batch, m, 0.5, seed=batch + 3)
+    buf = torch.zeros(batch * m + 1, device=cuda)
+    xs = {"aligned": torch.from_numpy(x).to(cuda),
+          "narrow": torch.from_numpy(np.ascontiguousarray(x[:, :m - 3]))
+          .to(cuda),
+          "offset": buf[1:].view(batch, m)}
+    xs["offset"].copy_(xs["aligned"])
+    assert xs["offset"].data_ptr() % 16
+    for what, xt in xs.items():
+        args = (f.cj, f.ct, f.idx, f.vals, xt)
+        y = rsell_spmm(*args, n_padded=f.padded[1], plan=f._work)
+        y2 = rsell_spmm(*args, n_padded=f.padded[1], plan=f._work)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y2), what
+        _close(y, rsell_spmm_plain(*args, n_padded=f.padded[1]), 1e-4)
 
 
 def test_public_path_launches_the_kernels(cuda):

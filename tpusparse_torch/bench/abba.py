@@ -6,6 +6,7 @@ Usage (on the card, from the repository root):
     python -m tpusparse_torch.bench.abba --parent DIR [--points K1,K12]
         [--variant DIR ...] [--out FILE]
     python -m tpusparse_torch.bench.abba --parent DIR --points K6,K7
+    python -m tpusparse_torch.bench.abba --parent DIR --points K4,K9
 
 DIR holds an earlier version's ``csrc`` sources (for instance unpacked with
 ``git archive <commit> tpusparse_torch/csrc``). The sources of the chosen
@@ -16,9 +17,12 @@ their one-launch redesign: no arrival counters, the slices of
 ``_build.split_work`` added by a second, reduce kernel. K6
 (``bsr_spmv.cu``) and K7 (``bsell_spmv.cu``) keep their C interface; the
 parent is given the plan it was built for, one-tile items of
-``rsell_spmv.device_work_plan``. K2 (``dense.cu``) and K11
-(``sell_mxu_spmm.cu``) are called through the current interface. The new
-kernels are the package's own.
+``rsell_spmv.device_work_plan``. K4 (``rsell_spmv.cu``) and K9
+(``asp_spmv.cu``) are called through the C interface they had before their
+redesign: K4 with the same one-plan-for-every-batch items and its ``ct``,
+K9 with ``_build.split_work`` slices, a partial buffer and its reduce
+kernel. K2 (``dense.cu``) and K11 (``sell_mxu_spmm.cu``) are called through
+the current interface. The new kernels are the package's own.
 
 Points: K1 on the headline workload (4096^2, d = 0.5, seed 0) at B = 1 and
 8 and at the six floors points (``bench.report``: 4096^2, d in {0.1, 0.5},
@@ -30,16 +34,25 @@ on the headline workload at block_m 512 (the full registry's ``bsr_cuda``),
 at B = 1 and 8, beside K2 and cuBLAS on the same dense A; K7 on
 blockpruned-4096's SELL tier (TCSR packed for B = 1) and on the headline
 workload's TCSR pack (SELL tier only, the full registry's ``tcsr_cuda``),
-at B = 1 and 8, beside K1 on the SELL pack of the same A and cuSPARSE.
-``--points`` picks kernels (default K1,K12). At each point
+at B = 1 and 8, beside K1 on the SELL pack of the same A and cuSPARSE;
+K4 on the headline workload's RSELL pack (the full registry's
+``rsell_cuda``, K4 alone) and on the 8192^2 powerlaw d = 0.15 matrix's
+sorted pack (the router's skew path), at B = 1 and 8, beside cuSPARSE and
+(at the headline) K1 on the SELL pack of the same A; K9 on the headline
+workload's ASP matrix (the full registry's ``asp_cuda``, its full plan)
+and on the skew matrix (this X's host plan), at B = 1 and 8, beside cuBLAS,
+K2 on the same dense A and (at the headline) K6 on the full registry's
+``bsr_cuda`` pack. ``--points`` picks kernels (default K1,K12). At each point
 it checks parent and new against each other (atol 1e-4), then times A, B,
 B, A with ``bench.runner``'s ``device_time`` (median of 20 calls,
-read-flushed L2), then the library call (cuSPARSE CSR for K1, K7, K11
-and K12, cuBLAS for K2 and K6) and the yardstick kernels (K2 for K6, K1
-for K7) once each, and each contestant's device time in CUDA kernels per
+read-flushed L2), then the library call (cuSPARSE CSR for K1, K4, K7,
+K11 and K12, cuBLAS for K2, K6 and K9) and the yardstick kernels (K2 for
+K6, K1 for K7, K1 for K4, K2 and K6 for K9) once each, and each
+contestant's device time in CUDA kernels per
 call (``bench.profile.kernel_times``: ``torch.profiler`` after the same L2
-flush). It then counts, with ``cuobjdump -sass``, the tensor-core (HMMA), asynchronous-copy
-(LDGSTS, UBLKCP) and shared-atomic instructions of each kernel of both
+flush). It then counts, with ``cuobjdump -sass``, the tensor-core (HMMA),
+asynchronous-copy (LDGSTS, UBLKCP, UTMALDG), mbarrier (SYNCS), cluster-barrier
+(UCGABAR) and shared-atomic instructions of each kernel of both
 libraries. It prints a Markdown table headed by the card's name and power
 limit, and writes every number as JSON to FILE. Each ``--variant DIR`` (a
 tree with the current C interface, for instance a copy with one phase of a
@@ -67,25 +80,27 @@ from tpusparse_torch.bench.roofline import card_info
 from tpusparse_torch.bench.runner import device_time
 from tpusparse_torch.formats.bell import BellMatrix
 from tpusparse_torch.formats.bsr import BsrMatrix
+from tpusparse_torch.formats.rsell import RsellMatrix
 from tpusparse_torch.formats.sell import SellMatrix
 from tpusparse_torch.formats.tcsr import TcsrMatrix
 from tpusparse_torch.kernels import _build
+from tpusparse_torch.kernels.asp_spmv import AspMatrix, asp_spmm
 from tpusparse_torch.kernels.bell_spmv import bell_spmm
 from tpusparse_torch.kernels.bsell_spmv import bsell_spmm
 from tpusparse_torch.kernels.bsr_spmv import bsr_spmm
 from tpusparse_torch.kernels.dense import dense_cuda, dense_torch
-from tpusparse_torch.kernels.rsell_spmv import device_work_plan
+from tpusparse_torch.kernels.rsell_spmv import device_work_plan, rsell_spmm
 from tpusparse_torch.kernels.sell_mxu_spmm import sell_mxu_spmm
 from tpusparse_torch.kernels.sell_spmv import _VALS_KIND, sell_spmm
 from tpusparse_torch.testing import generators
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # The kernels' sources and the C interface each is called through in the
-# parent: K1 and K12 as before their one-launch redesign, K2, K11, K6 and
-# K7 as now.
+# parent: K1 and K12 as before their one-launch redesign, K4 and K9 as
+# before theirs, K2, K11, K6 and K7 as now.
 SOURCES = {"K1": "sell_spmv.cu", "K12": "bell_spmv.cu", "K2": "dense.cu",
            "K11": "sell_mxu_spmm.cu", "K6": "bsr_spmv.cu",
-           "K7": "bsell_spmv.cu"}
+           "K7": "bsell_spmv.cu", "K4": "rsell_spmv.cu", "K9": "asp_spmv.cu"}
 PARENT_SIGNATURES = {
     # idx, vals, vals_kind, x, scales, part, y, nb, nt, w, batch, ldx,
     # slices, per_slice, n, device, stream
@@ -97,9 +112,19 @@ PARENT_SIGNATURES = {
     "K7": ("tps_bsell_spmm", _build._SIGNATURES["tps_bsell_spmm"]),
     "K2": ("tps_dense_spmm", _build._SIGNATURES["tps_dense_spmm"]),
     "K11": ("tps_sell_mxu_spmm", _build._SIGNATURES["tps_sell_mxu_spmm"]),
+    # items, gptr, ct, idx, vals, x, part, y, nitems, batch, ldx, n,
+    # device, stream
+    "K4": ("tps_rsell_spmm", [_P] * 8 + [_I] * 5 + [_P]),
+    # plan, count, a, x, part, y, lda, n, batch, ldx, plan_len, slices,
+    # per_slice, device, stream
+    "K9": ("tps_asp_spmm", [_P] * 6 + [_I] * 8 + [_P]),
 }
+# the router's skew workload (chip_smoke.py's skew path)
+SKEW = dict(m=8192, n=8192, density=0.15, distribution="powerlaw", seed=0)
+# kernels called through the current C interface in the parent
+CURRENT = {"K2", "K11", "K6", "K7"}
 SASS_NAMES = (r"sell_ring|sell_partial|bell_kernel|bell_partial|dense|mxu"
-              r"|bsr|bsell")
+              r"|bsr|bsell|rsell|asp")
 
 
 def build_other(src: Path, stem: str, kernels) -> Path:
@@ -230,6 +255,106 @@ def parent_bsell(so, t: TcsrMatrix, x, n, plan):
     return y
 
 
+def parent_rsell(so, r: RsellMatrix, x, n, plan):
+    """The earlier K4: one plan of whole-chunk items for every batch, the
+    chunks' windows read through ct, then the group reduce kernel."""
+    dev = x.device
+    items, gptr = plan
+    batch = x.shape[0]
+    part = torch.empty((items.shape[0], batch, 128), dtype=torch.float32,
+                       device=dev)
+    y = torch.empty((batch, n), dtype=torch.float32, device=dev)
+    _check(so.tps_rsell_spmm(
+        items.data_ptr(), gptr.data_ptr(), r.ct.data_ptr(), r.idx.data_ptr(),
+        r.vals.data_ptr(), x.data_ptr(), part.data_ptr(), y.data_ptr(),
+        items.shape[0], batch, x.shape[1], n, dev.index,
+        _build.stream_of(x)), "parent K4")
+    return y
+
+
+def parent_asp(so, f: AspMatrix, plan, k, x):
+    """The earlier K9: split_work slices into a partial buffer, then the
+    reduce kernel."""
+    dev = x.device
+    n = f.shape[1]
+    batch, plan_len = x.shape[0], plan.numel()
+    per, slices = _build.split_work(plan_len, -(-n // 128), dev)
+    part = torch.empty((slices, batch, n), dtype=torch.float32, device=dev)
+    y = torch.empty((batch, n), dtype=torch.float32, device=dev)
+    _check(so.tps_asp_spmm(
+        plan.data_ptr(), k.data_ptr(), f.a_pad.data_ptr(), x.data_ptr(),
+        part.data_ptr(), y.data_ptr(), f.a_pad.shape[1], n, batch,
+        x.shape[1], plan_len, slices, per, dev.index, _build.stream_of(x)),
+        "parent K9")
+    return y
+
+
+def skew_points(dev, parent, kernels, a, a_dev, at_csr, heads):
+    """The K4 and K9 points: (name, parent, new, library, {yardstick:
+    call})."""
+    out = []
+    a_s = generators.random_sparse_matrix(
+        SKEW["m"], SKEW["n"], density=SKEW["density"], seed=SKEW["seed"],
+        distribution=SKEW["distribution"])
+    s_dev = torch.from_numpy(a_s).to(dev)
+    s_csr = torch.from_numpy(np.ascontiguousarray(a_s.T)).to(dev) \
+        .to_sparse_csr()
+    s_heads = []
+    for b in (1, 8):
+        x = (generators.random_sparse_vector(SKEW["m"], 0.5, SKEW["seed"])
+             [None, :] if b == 1 else generators.random_sparse_batch(
+                 b, SKEW["m"], 0.5, SKEW["seed"]))
+        s_heads.append((b, torch.from_numpy(np.ascontiguousarray(x)).to(dev)))
+    wls = [("headline", a, a_dev, at_csr, heads),
+           ("skew", a_s, s_dev, s_csr, s_heads)]
+    for where, mat, m_dev, m_csr, xs in wls:
+        n = mat.shape[1]
+        if "K4" in kernels:
+            r = RsellMatrix.from_dense(mat, device=dev)
+            np_ = r.padded[1]
+            plan = device_work_plan(r.cj.cpu().numpy(), np_ // 128, dev)
+            yard = {}
+            if where == "headline":
+                s = SellMatrix.from_dense(mat, device=dev)
+                yard = {"K1": s}
+            for b, xt in xs:
+                out.append((
+                    f"K4 {where} B={b}",
+                    lambda r=r, xt=xt, plan=plan, np_=np_: parent_rsell(
+                        parent, r, xt, np_, plan),
+                    lambda r=r, xt=xt, np_=np_: rsell_spmm(
+                        r.cj, r.ct, r.idx, r.vals, xt, n_padded=np_,
+                        plan=r._work),
+                    lambda xt=xt, m_csr=m_csr: m_csr @ xt.T,
+                    {k: (lambda s=s, xt=xt, n=n: sell_spmm(
+                        s.idx, s.vals, xt, n=n)) for k, s in yard.items()}))
+        if "K9" in kernels:
+            f = AspMatrix.from_dense(mat, device=dev)
+            yard = {}
+            if where == "headline":
+                bsr = BsrMatrix.from_dense(mat, block_m=512, device=dev)
+                yard["K6"] = lambda xt, bsr=bsr, n=n: bsr_spmm(
+                    bsr.bi, bsr.bj, bsr.blocks, xt, n_padded=bsr.padded[1],
+                    n=n, plan=bsr._work)
+            for b, xt in xs:
+                plan = f._full_plan() if where == "headline" else \
+                    torch.from_numpy(f.plan(xt.cpu().numpy())).to(dev)
+                k = f._count(plan.numel())
+                calls = {"K2": lambda xt=xt, m_dev=m_dev: dense_cuda(m_dev,
+                                                                    xt)}
+                calls.update({name: (lambda fn=fn, xt=xt: fn(xt))
+                              for name, fn in yard.items()})
+                out.append((
+                    f"K9 {where} B={b}",
+                    lambda f=f, plan=plan, k=k, xt=xt: parent_asp(
+                        parent, f, plan, k, xt),
+                    lambda f=f, plan=plan, k=k, xt=xt, n=n: asp_spmm(
+                        plan, k, f.a_pad, xt, n=n),
+                    lambda xt=xt, m_dev=m_dev: dense_torch(m_dev, xt),
+                    calls))
+    return out
+
+
 def _headline_x(b: int, dev) -> torch.Tensor:
     x = (generators.random_sparse_vector(4096, 0.5, 0)[None, :]
          if b == 1 else generators.random_sparse_batch(b, 4096, 0.5, 0))
@@ -333,6 +458,8 @@ def points(dev, parent, kernels):
                         lambda xt=xt, csr=csr: csr @ xt.T))
     if "K6" in kernels or "K7" in kernels:
         out += block_points(dev, parent, kernels, a, a_dev, at_csr, heads)
+    if "K4" in kernels or "K9" in kernels:
+        out += skew_points(dev, parent, kernels, a, a_dev, at_csr, heads)
     return [p if len(p) == 5 else p + ({},) for p in out]
 
 
@@ -347,9 +474,11 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
             name = name if re.search(SASS_NAMES, name) else None
             if name:
                 out[name] = {"HMMA": 0, "HMMA_TF32": 0, "LDGSTS": 0,
-                             "UBLKCP": 0, "ATOMS": 0}
+                             "UBLKCP": 0, "UTMALDG": 0, "SYNCS": 0,
+                             "UCGABAR": 0, "ATOMS": 0}
         elif name:
-            for key in ("LDGSTS", "UBLKCP", "ATOMS"):
+            for key in ("LDGSTS", "UBLKCP", "UTMALDG", "SYNCS", "UCGABAR",
+                        "ATOMS"):
                 out[name][key] += key in line
             if "HMMA" in line:
                 out[name]["HMMA"] += 1
@@ -361,7 +490,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, required=True)
     ap.add_argument("--points", default="K1,K12",
-                    help="kernels to compare, of K1, K12, K2, K11, K6, K7")
+                    help="kernels to compare, of K1, K12, K2, K11, K6, K7, "
+                    "K4, K9")
     ap.add_argument("--variant", type=Path, action="append", default=[],
                     help="a tree with the current C interface, timed as "
                     "a further contestant (repeatable; not checked)")
@@ -378,7 +508,7 @@ def main() -> int:
     parent_lib = build_other(args.parent, "parent", kernels)
     parent_sigs = dict(PARENT_SIGNATURES[k] for k in kernels)
     parent = load(parent_lib, parent_sigs)
-    if {"K2", "K11", "K6", "K7"} & set(kernels):   # the current interface
+    if CURRENT & set(kernels):   # the current interface
         parent = _Variant(parent, parent_sigs)
     names = [PARENT_SIGNATURES[k][0] for k in kernels]
     mine = {k: _build._SIGNATURES[k] for k in names}

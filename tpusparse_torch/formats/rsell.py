@@ -27,8 +27,8 @@ from tpusparse_torch.formats.csr import (CsrMatrix, col_window_widths,
 from tpusparse_torch.formats.sell import _sorted_rows, as_input
 from tpusparse_torch.kernels.permute import (permute_columns, permute_plan,
                                              source_lanes)
-from tpusparse_torch.kernels.rsell_spmv import (check_plan_ids,
-                                                device_work_plan, rsell_spmm)
+from tpusparse_torch.kernels.rsell_spmv import (check_plan_ids, rsell_plans,
+                                                rsell_spmm)
 from tpusparse_torch.utils import resolve_device, round_up
 
 _LANES = 128
@@ -197,9 +197,10 @@ class RsellMatrix:
         # K5 reads one int32 source lane per output column
         self.perm_src = None if perm_plan is None else torch.from_numpy(
             source_lanes(*perm_plan, self.shape[1])).to(dev)
-        # K4's work plan, built once from the host copy of cj
-        self._work = None if dev.type != "cuda" else device_work_plan(
-            cj.cpu().numpy(), self.padded[1] // _LANES, dev)
+        # K4's work plans, one per batch tile, built once from host copies
+        self._work = None if dev.type != "cuda" else rsell_plans(
+            cj.cpu().numpy(), ct.cpu().numpy(), self.padded[1] // _LANES,
+            dev)
 
     @property
     def device(self) -> torch.device:

@@ -51,9 +51,9 @@ _SIGNATURES = {
     "tps_rsell_spmm": [_P] * 8 + [_I] * 5 + [_P],
     # y, src, out, batch, ldy, n, device, stream
     "tps_permute_columns": [_P, _P, _P] + [_I] * 4 + [_P],
-    # plan, count, a, x, part, y, lda, n, batch, ldx, plan_len, slices,
-    # per_slice, device, stream
-    "tps_asp_spmm": [_P] * 6 + [_I] * 8 + [_P],
+    # plan, count, a, x, y, rows, lda, n, batch, ldx, plan_len, cluster,
+    # device, stream
+    "tps_asp_spmm": [_P] * 5 + [_I] * 8 + [_P],
     # items, gptr, bi, blocks, x, part, y, nitems, block_m, batch, ldx, n,
     # device, stream
     "tps_bsr_spmm": [_P] * 7 + [_I] * 6 + [_P],

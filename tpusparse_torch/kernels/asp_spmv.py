@@ -7,8 +7,14 @@ visits only the 128-row windows of A where X has a nonzero. ``a_pad`` has
 JAX's shape: rows padded to 128 plus one trailing all-zero window (id
 ``nt``, which an empty plan points at), columns padded to ``block_n``.
 ``block_n`` is carried as layout only: the CUDA kernel's launch shape comes
-from ``kernels/_build.py:split_work``. The JAX package pads the batch to 8
-rows for the TPU's sublanes; the port does not.
+from ``asp_shape``. The JAX package pads the batch to 8 rows for the TPU's
+sublanes; the port does not.
+
+The kernel is one launch a call with no partial sums in device memory: a
+strip of 128 output columns and a batch tile belongs to a cluster of 1-8
+blocks that split the live windows' rows, stream them through a ring of
+stages filled by 2D tensor copies (TMA), and add their sums through
+distributed shared memory in rank order (``csrc/asp_spmv.cu``).
 
 Plans are those of ``formats/awsp.py`` (``PlanSkip``) at window
 granularity: a host plan for host data, the device plan
@@ -27,10 +33,34 @@ import torch
 from tpusparse_torch.formats.awsp import PlanSkip
 from tpusparse_torch.formats.csr import _host_numpy
 from tpusparse_torch.kernels import _build
-from tpusparse_torch.kernels.dense import dense_plain
+from tpusparse_torch.kernels.dense import batch_tile, dense_plain
 from tpusparse_torch.utils import cdiv, resolve_device, round_up
 
 _LANES = 128
+# csrc/asp_spmv.cu: rows a ring stage, stages, the mbarriers' header, and
+# the blocks a cluster may hold (portable sizes)
+STAGE_ROWS = 4 * 8
+STAGES = 4
+_HEADER = 128
+CLUSTERS = (8, 4, 2, 1)
+
+
+def asp_smem_bytes(bt: int) -> int:
+    """Dynamic shared memory of a K9 block (``kAspSmem``): the mbarriers and
+    a ring of STAGES stages of STAGE_ROWS rows of 128 columns and their x
+    values for ``bt`` batch rows."""
+    return _HEADER + STAGES * (STAGE_ROWS * _LANES + bt * STAGE_ROWS) * 4
+
+
+def asp_shape(n: int, batch: int, sms: int) -> tuple[int, int, int]:
+    """(cluster, strips, tiles) of a K9 call on a card of ``sms`` SMs:
+    strips of 128 columns x batch tiles, each a cluster of blocks, the
+    largest cluster for which every block has an SM to itself (1 when the
+    strips alone fill the card): more blocks an SM, each streaming its own
+    rows of A, measured slower on an H100 (PERF.md)."""
+    strips, tiles = cdiv(n, _LANES), cdiv(batch, batch_tile(batch))
+    cluster = next((c for c in CLUSTERS if strips * tiles * c <= sms), 1)
+    return cluster, strips, tiles
 
 
 def asp_spmm_plain(plan: torch.Tensor, k: torch.Tensor, a_pad: torch.Tensor,
@@ -64,13 +94,14 @@ def asp_spmm(plan: torch.Tensor, k: torch.Tensor, a_pad: torch.Tensor,
                          f"{x.dtype} {tuple(x.shape)}")
     dev = _build.require_cuda("asp_spmm", plan, k, a_pad, x)
     batch, plan_len = x.shape[0], plan.numel()
-    per_slice, slices = _build.split_work(plan_len, cdiv(n, _LANES), dev)
-    part = torch.empty((slices, batch, n), dtype=torch.float32, device=dev)
+    cluster, _, _ = asp_shape(n, batch, _build.sm_count(dev))
+    if x.shape[1] == 0:             # no row of x: every product reads 0
+        x = x.new_zeros((batch, 1))
     y = torch.empty((batch, n), dtype=torch.float32, device=dev)
     rc = _build.lib().tps_asp_spmm(
         plan.data_ptr(), k.data_ptr(), a_pad.data_ptr(), x.data_ptr(),
-        part.data_ptr(), y.data_ptr(), lda, n, batch, x.shape[1], plan_len,
-        slices, per_slice, dev.index, _build.stream_of(x))
+        y.data_ptr(), rows, lda, n, batch, x.shape[1], plan_len, cluster,
+        dev.index, _build.stream_of(x))
     _build.check(rc, "asp_spmm")
     asp_spmm.launches += 1
     return y

@@ -97,8 +97,14 @@ def device_plans(bj: np.ndarray, nb: int, tile_rows: int,
                  max_tiles: int = 0) -> dict[int, ItemPlan]:
     """``plans`` for the CUDA ``device``, as int32 tensors there (batch
     tiles with the same items share them)."""
-    host = plans(bj, nb, tile_rows, _build.sm_count(device), shapes,
-                 max_tiles)
+    return upload(plans(bj, nb, tile_rows, _build.sm_count(device), shapes,
+                        max_tiles), device)
+
+
+def upload(host: dict[int, tuple[np.ndarray, np.ndarray]],
+           device: torch.device) -> dict[int, ItemPlan]:
+    """Host plans by batch tile as int32 tensors on ``device`` (batch tiles
+    with the same items share them)."""
     made: dict[int, ItemPlan] = {}
     out = {}
     for bt, (items, gptr) in host.items():
@@ -126,10 +132,11 @@ def check_smem(name: str, need: int, limit: int) -> None:
 
 def resolve(name: str, plan, bj: torch.Tensor, nb: int, tile_rows: int,
             bt: int, dev: torch.device, shapes: dict[int, tuple[int, int]],
-            max_tiles: int = 0) -> ItemPlan:
+            max_tiles: int = 0, cols: int = 3) -> ItemPlan:
     """The plan of batch tile ``bt`` for a wrapper: from ``plan`` (the
-    ``device_plans`` of the pack), checked against ``nb`` groups, or built
-    here from a host copy of bj when None."""
+    ``device_plans`` of the pack, items of ``cols`` int32 each), checked
+    against ``nb`` groups, or built here from a host copy of bj when
+    None."""
     if plan is None:
         plan = device_plans(bj.cpu().numpy(), nb, tile_rows, dev, shapes,
                             max_tiles)
@@ -138,7 +145,7 @@ def resolve(name: str, plan, bj: torch.Tensor, nb: int, tile_rows: int,
                          f"pack, {{batch tile: ItemPlan}}")
     items, gptr = plan[bt]
     if items.dtype != torch.int32 or gptr.dtype != torch.int32 \
-            or items.ndim != 2 or items.shape[1] != 3 \
+            or items.ndim != 2 or items.shape[1] != cols \
             or gptr.shape != (nb + 1,):
         raise ValueError(f"{name}: plan must be int32 (items, gptr) of "
                          "device_plans for this n_padded")

@@ -24,7 +24,18 @@ seed 0) for B = 1 and B = 8:
    bulk-copied tiles reads the pack once for every 32 rows, phase 15);
 3. runs AWSP on a structured X (a quarter of the 128-row windows live, g = 1)
    through the device plan under ``torch.cuda.set_sync_debug_mode("error")``,
-   plus an all-zero X;
+   plus an all-zero X: each call one launch of the plan kernel
+   (``csrc/group_plan.cu``) and one of K3, which splits the live slot rows
+   on the device, streams them through a ring of bulk-copied stages and sums
+   its parts in the same launch;
+3b. drives K3 on the JAX package's live-fraction sweep (4096^2, d = 0.5,
+   g = 2; live 0, 1/16, 1/4, 1/2 and 1 of the 16 groups, B = 1 and 8, the
+   pattern shared by the batch) through the public call on a CUDA X, counted;
+   then holds the plan kernel to ``device_group_plan_plain`` bit for bit,
+   and K3 with this X's exact host plan and through the public call to its
+   plain version and the oracle at every point, times both beside the
+   bound (the live groups' tiles, x, y and the plan), and times the plan
+   kernel at B = 8;
 4. holds K1's bf16 and int8 storage lanes against their plain versions
    (atol 1e-4; these lanes are outside the 1e-3 contract);
 
@@ -33,15 +44,18 @@ seed 0; X ~50% nonzero):
 
 5. drives the skew path through the public API: ``auto_format`` must pick
    RSELL at B = 1 and ASP at B = 8, and ``spmv``/``spmm`` on them must
-   launch K4 (RSELL), K5 (the unpermute of the sorted pack) and K9 (ASP),
-   with every launch counter set to 0 just before and read just after;
+   launch K4 (RSELL, whose second kernel writes the sorted pack's output in
+   the user's column order) and K9 (ASP), and no K5, with every launch
+   counter set to 0 just before and read just after;
 6. holds K4, K5 and K9 at B = 1 and 8 against their plain versions and the
    float64 oracle, with the same timings and a library call each (cuSPARSE
    CSR for K4, ``torch.index_select`` for K5, cuBLAS for K9);
 7. runs ASP through the device plan on a structured X (a quarter of the
    windows live) under ``torch.cuda.set_sync_debug_mode("error")``, plus an
-   all-zero X, and K4 on a flat (run = 1) pack and on an unsorted pack
-   (no unpermute, so no K5 launch);
+   all-zero X; times the sorted skew pack's public call against K4 alone in
+   the pack's column order (what the fused unpermute costs); and runs K4 on
+   a flat (run = 1) sorted pack (its unpermute in K4, the same bits as K4
+   then K5) and on an unsorted pack, with no K5 launch either way;
 
 and then the router's banded and block-structured routes:
 
@@ -110,7 +124,8 @@ and then the JAX package's full bench registry and its floors study:
     column's bitmap decoded once into a list of its live positions, then
     only live values multiplied, for every batch row); a small BELL at
     block_m 128 and 256; ``BinnedSellMatrix`` built on the skew matrix
-    (K1 once per bucket and K5 once a call, against the oracle); and
+    (K1 once per bucket and K5 once a call on the buckets' outputs in
+    place, against the oracle); and
     ``auto_format`` on the router test's skewed 65536^2 CSR at B = 48,
     which must now pack ``BinnedSellMatrix``;
 15. the floors study (``tpusparse_torch.bench.report``: 4096^2, d in
@@ -129,7 +144,9 @@ Kernel against plain version: atol 1e-4 (the same products summed in
 another order); against the float64 oracle: atol 1e-3 (the repo's
 contract). It prints each kernel's launches summed over the counted runs
 of all the paths above (also ``launches_all_paths`` in its row), one
-``{"kernels": [...]}`` line, the card's name and power limit,
+``{"kernels": [...]}`` line (K3's row with its live-1/4 points, the sweep
+and the plan kernel; K5's with its launches on binned SELL's path and the
+fused unpermute's cost and count), the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises, so the
 exit code is not 0 and no result line is printed. With no CUDA device it
 exits with code 2 before doing anything.
@@ -151,6 +168,7 @@ from tpusparse_torch import (AspMatrix, AwspMatrix, BellMatrix,
                              matrix_stats_csr, spmm, spmv, trainable_linear)
 from tpusparse_torch.autodiff import retied
 from tpusparse_torch.bench import report
+from tpusparse_torch.bench.abba import SWEEP, awsp_bytes, sweep_matrix, x_pool
 from tpusparse_torch.bench.roofline import (ARTIFACT_SHARE, card_info,
                                             detect_hbm_gbps, format_bytes,
                                             roofline_fraction)
@@ -160,7 +178,9 @@ from tpusparse_torch.formats import tcsr as tcsr_mod
 from tpusparse_torch.formats.auto import route
 from tpusparse_torch.kernels import _build
 from tpusparse_torch.kernels.asp_spmv import asp_spmm, asp_spmm_plain
-from tpusparse_torch.kernels.awsp_spmv import awsp_spmm, awsp_spmm_plain
+from tpusparse_torch.kernels.awsp_spmv import (awsp_spmm, awsp_spmm_plain,
+                                               device_group_plan,
+                                               device_group_plan_plain)
 from tpusparse_torch.kernels.bell_spmv import bell_spmm, bell_spmm_plain
 from tpusparse_torch.kernels.bsell_spmv import bsell_spmm, bsell_spmm_plain
 from tpusparse_torch.kernels.bsr_spmv import bsr_spmm, bsr_spmm_plain
@@ -194,7 +214,8 @@ BANDED_WRAPPERS = {"dia_spmv": dia_spmv}
 TRAIN_WRAPPERS = {"sell_spmv": sell_spmm, "sell_grad": sell_dvals}
 ALL_WRAPPERS = {**WRAPPERS, **SKEW_WRAPPERS, **BLOCK_WRAPPERS,
                 **BANDED_WRAPPERS, **TRAIN_WRAPPERS, "bell_spmv": bell_spmm,
-                "sell_mxu_spmm": sell_mxu_spmm}
+                "sell_mxu_spmm": sell_mxu_spmm,
+                "group_plan": device_group_plan}   # K3's and K9's device plan
 # the kernels each full-registry entry must launch (tcsr_cuda: K7 and/or
 # K6, whichever tiers its pack holds)
 FULL_KERNELS = {"ell_torch": (), "bell_cuda": ("bell_spmv",),
@@ -438,7 +459,7 @@ def check_device_plan(a, x1, dev) -> None:
     xs_t, xb_t = torch.from_numpy(xs).to(dev), torch.from_numpy(xb).to(dev)
     zero = torch.zeros_like(xs_t)
     torch.cuda.synchronize()
-    before = awsp_spmm.launches
+    before = awsp_spmm.launches, device_group_plan.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         y_dev = spmv(f, xs_t)                    # CUDA tensor -> device plan
@@ -446,7 +467,9 @@ def check_device_plan(a, x1, dev) -> None:
         y_zero = spmv(f, zero)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    require(awsp_spmm.launches == before + 3, "device plan: no launches")
+    require((awsp_spmm.launches, device_group_plan.launches)
+            == (before[0] + 3, before[1] + 3),
+            "device plan: a plan kernel and a K3 launch a call expected")
     y_static = spmv(f, xs)                       # host data -> host plan
     require(len(f.plan(xs)) == f.n_groups // 4,
             f"host plan has {len(f.plan(xs))} groups, want {f.n_groups // 4}")
@@ -459,6 +482,110 @@ def check_device_plan(a, x1, dev) -> None:
           f"all-zero X -> zero: {zero_ok}")
     require(e_static <= PLAIN_ATOL and e_ref <= ATOL and zero_ok,
             "awsp device plan disagrees")
+
+
+def check_awsp_sweep(dev) -> dict:
+    """Phase 3b: K3 on the JAX package's live-fraction sweep (4096^2,
+    d = 0.5, g = 2: live 1/16, 1/4, 1/2 and 1, B = 1 and 8, the pattern
+    shared by the batch): the public call on a CUDA X (the plan kernel,
+    then K3) and K3 with the exact host plan, each against the plain
+    version and the oracle, timed beside its bound; the plan kernel against
+    ``device_group_plan_plain`` bit for bit there and at live 0, timed at
+    B = 8, its launches counted over this phase."""
+    a_l = sweep_matrix()
+    f = AwspMatrix.from_dense(a_l, g=SWEEP["g"], device=dev)
+    ng, span = f.n_groups, f.span
+    hbm = detect_hbm_gbps() * 1e9
+    m = SWEEP["m"]
+    print(f"-- K3 on the live-fraction sweep: {f!r}")
+    points = [(live, b) for live in (0.0,) + SWEEP["lives"] for b in BATCHES]
+    xs = {p: (x_pool(m, ng, span, *p) if p[0] else
+              np.zeros((p[1], m), np.float32)) for p in points}
+    xts = {p: torch.from_numpy(x).to(dev) for p, x in xs.items()}
+    torch.cuda.synchronize()
+    zero_counts()
+    ys = {p: f.spmm(xt) for p, xt in xts.items()}   # plan kernel, then K3
+    torch.cuda.synchronize()
+    launches = read_counts(("awsp_spmv", "group_plan"))
+    tally(launches)
+    print("launches on the sweep:", json.dumps(launches))
+    require(launches == {"awsp_spmv": len(points), "group_plan": len(points)},
+            "K3 sweep: a plan kernel and a K3 launch a call expected")
+    rows = {}
+    for (live, b), x in xs.items():
+        xt, y_dev = xts[live, b], ys[live, b]
+        plan, k = device_group_plan(xt, ng, span)
+        want_plan, want_k = device_group_plan_plain(xt, ng, span)
+        torch.cuda.synchronize()
+        require(torch.equal(plan, want_plan) and torch.equal(k, want_k),
+                f"plan kernel live={live} B={b}: not the plain plan")
+        hp = torch.from_numpy(f.plan(x)).to(dev)
+        hk = f._count(hp.numel())
+        args = (hp, hk, f.idx, f.vals, xt)
+        y_host = awsp_spmm(*args, g=f.g, n=f.shape[1])
+        y_plain = awsp_spmm_plain(*args, g=f.g, n=f.shape[1])
+        y_ref = reference.sgemm_cpu(x, a_l)
+        e_plain = max(max_err(y_host, y_plain), max_err(y_dev, y_plain))
+        e_ref = max(max_err(y_host, y_ref), max_err(y_dev, y_ref))
+        require(e_plain <= PLAIN_ATOL and e_ref <= ATOL,
+                f"K3 live={live} B={b}: |k-plain| {e_plain:.3e}, "
+                f"|k-oracle| {e_ref:.3e}")
+        if not live:
+            require(int(torch.count_nonzero(y_dev)) == 0,
+                    "K3: an all-zero X gave y != 0")
+            continue
+        nbytes = awsp_bytes(f, hp.numel(), b, hp.numel())
+        ms = device_time(lambda: awsp_spmm(*args, g=f.g, n=f.shape[1]),
+                         name="awsp_spmv").seconds * 1e3
+        dev_ms = device_time(lambda: f.spmm(xt)).seconds * 1e3
+        bound = nbytes / hbm * 1e3
+        require(bound / ms <= ARTIFACT_SHARE,
+                f"K3 live={live} B={b}: share {bound / ms:.3f}")
+        rows[f"live={live},B={b}"] = {
+            "ms": ms, "device_plan_call_ms": dev_ms, "bound_ms": bound,
+            "bound_by": "bytes", "bytes": nbytes, "share": bound / ms,
+            "max_abs_err": e_plain, "max_abs_err_oracle": e_ref}
+        print(f"   live={live} B={b}: {hp.numel()} of {ng} groups, "
+              f"|k-plain|={e_plain:.3e} |k-oracle|={e_ref:.3e} | K3 "
+              f"(host plan) {ms * 1e3:.2f} us, bound {bound * 1e3:.2f} "
+              f"us, share {bound / ms:.3f} | public call (plan kernel + "
+              f"K3) {dev_ms * 1e3:.2f} us")
+    x = x_pool(m, ng, span, 0.25, 8)
+    xt = torch.from_numpy(x).to(dev)
+    plan_ms = device_time(lambda: device_group_plan(xt, ng, span)).seconds * 1e3
+    plain_ms = device_time(lambda: device_group_plan_plain(xt, ng, span),
+                           warmup=1, reps=5).seconds * 1e3
+    nbytes = 4 * (x.size + ng + 1)
+    plan_row = {"name": "group_plan", "launches": launches["group_plan"],
+                "source": "tpusparse_torch/csrc/group_plan.cu",
+                "max_abs_err": 0.0, "ms": plan_ms, "plain_ms": plain_ms,
+                "bound_ms": nbytes / hbm * 1e3, "bound_by": "bytes",
+                "library_ms": None, "point": "live=0.25,B=8"}
+    print(f"   plan kernel (live 1/4, B=8): {plan_ms * 1e3:.2f} us, bound "
+          f"{plan_row['bound_ms'] * 1e3:.3f} us | plain (torch ops) "
+          f"{plain_ms * 1e3:.2f} us")
+    return {"by_point": rows, "device_plan": plan_row}
+
+
+def fused_unpermute_cost(r: RsellMatrix, x1, x8, dev) -> dict:
+    """The sorted skew pack's public call (K4, its second kernel writing the
+    user's column order) against K4 alone in the pack's order, B = 1 and
+    8, timed in turns (call, K4, K4, call): what the unpermute costs now
+    that it rides K4."""
+    out = {}
+    for batch, x in zip(BATCHES, (x1[None, :], x8)):
+        xt = torch.from_numpy(x).to(dev)
+        calls = (lambda: r.spmm(xt),
+                 lambda: rsell_spmm(r.cj, r.ct, r.idx, r.vals, xt,
+                                    n_padded=r.padded[1], plan=r._work))
+        t = [device_time(calls[i]).seconds * 1e3 for i in (0, 1, 1, 0)]
+        call_ms, k4_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        out[str(batch)] = {"rsell_call_ms": call_ms, "k4_pack_order_ms": k4_ms,
+                           "cost_ms": call_ms - k4_ms}
+        print(f"   fused unpermute B={batch}: RSELL call {call_ms * 1e3:.2f} "
+              f"us, K4 in pack order {k4_ms * 1e3:.2f} us, cost "
+              f"{(call_ms - k4_ms) * 1e3:+.2f} us")
+    return out
 
 
 def check_lanes(a, x8, dev) -> None:
@@ -502,14 +629,21 @@ def skew_path(a, x1, x8, dev) -> tuple[RsellMatrix, AspMatrix, dict]:
     torch.cuda.synchronize()
     for w in SKEW_WRAPPERS.values():
         w.launches = 0
+    fused = rsell_spmm.unpermutes
     y1 = spmv(r, x1t)
     y8 = spmm(asp, x8t)                # CUDA tensor -> ASP device plan
     torch.cuda.synchronize()
     launches = {name: w.launches for name, w in SKEW_WRAPPERS.items()}
+    fused = rsell_spmm.unpermutes - fused
+    FUSED_UNPERMUTES[0] += fused
     tally(launches)
-    print("launches on the skew path:", json.dumps(launches))
-    for name, k in launches.items():
-        require(k > 0, f"{name}: no launch on the skew path")
+    print("launches on the skew path:", json.dumps(launches),
+          f"(K4 unpermuted in its second kernel: {fused})")
+    for name in ("rsell_spmv", "asp_spmv"):
+        require(launches[name] > 0, f"{name}: no launch on the skew path")
+    require(launches["permute"] == 0 and fused == launches["rsell_spmv"],
+            "skew path: the sorted pack's unpermute should ride K4, with no "
+            "K5 launch")
     e1 = max_err(y1, reference.sgemv_cpu(x1, a))
     e8 = max_err(y8, reference.sgemm_cpu(x8, a))
     print(f"   spmv(rsell) |y-oracle|={e1:.3e}, spmm(asp, B=8) "
@@ -552,7 +686,9 @@ def check_asp_device_plan(asp: AspMatrix, a, x8, dev) -> None:
 
 def check_rsell_bodies(dev) -> None:
     """K4 on a flat (run = 1) pack and on an unsorted pack, which needs no
-    unpermute: each against its plain version and the oracle."""
+    unpermute: each against its plain version and the oracle; the sorted
+    flat pack's public call is K4 alone, its second kernel unpermuting, and
+    equals the pack-order product unpermuted by K5 bit for bit."""
     packs = {"flat": (256, 2048, 0.01, 6), "unsorted": (1536, 2048, 0.25, 5)}
     for what, (m, n, d, seed) in packs.items():
         a = generators.random_sparse_matrix(m, n, density=d, seed=seed)
@@ -568,19 +704,32 @@ def check_rsell_bodies(dev) -> None:
             e_plain = max_err(yk, rsell_spmm_plain(*args,
                                                    n_padded=r.padded[1]))
             before = permute_columns.launches
-            e_ref = max_err(r.spmm(xt), reference.sgemm_cpu(x, a))
+            fused = rsell_spmm.unpermutes
+            y = r.spmm(xt)
+            e_ref = max_err(y, reference.sgemm_cpu(x, a))
             permuted = permute_columns.launches - before
+            fused = rsell_spmm.unpermutes - fused
+            FUSED_UNPERMUTES[0] += fused
             print(f"rsell {what} (run={r.run}, {len(r.cj)} chunks) "
                   f"B={batch}: max|k-plain|={e_plain:.3e} "
-                  f"max|y-oracle|={e_ref:.3e}, K5 launches {permuted}")
+                  f"max|y-oracle|={e_ref:.3e}, K5 launches {permuted}, "
+                  f"unpermuted by K4 {fused}")
             require(e_plain <= PLAIN_ATOL and e_ref <= ATOL,
                     f"rsell {what} B={batch} disagrees")
-            require(permuted == (0 if what == "unsorted" else 1),
-                    f"rsell {what}: {permuted} K5 launches")
+            require(permuted == 0 and fused == (r.perm_src is not None),
+                    f"rsell {what}: {permuted} K5 launches, {fused} fused")
+            if r.perm_src is not None:     # the same bits as K4, then K5
+                want = permute_columns(yk, r.perm_src)
+                torch.cuda.synchronize()
+                require(torch.equal(y, want),
+                        f"rsell {what} B={batch}: the fused unpermute is not "
+                        f"K5's bits")
 
 
-# each kernel's launches summed over the counted runs of every path
+# each kernel's launches summed over the counted runs of every path, and the
+# sorted-RSELL calls whose unpermute K4's second kernel did in those runs
 TOTALS = dict.fromkeys(ALL_WRAPPERS, 0)
+FUSED_UNPERMUTES = [0]
 
 
 def tally(counts: dict[str, int]) -> None:
@@ -1204,11 +1353,13 @@ def check_bell_block_sizes(dev) -> None:
                     f"bell block_m={block_m} B={batch} disagrees")
 
 
-def check_binned(a_s, x1_s, x8_s, dev) -> None:
-    """Binned SELL on the skew matrix: K1 once per bucket, K5 once a call;
-    and auto_format's binned route on a skewed 65536^2 CSR."""
+def check_binned(a_s, x1_s, x8_s, dev) -> int:
+    """Binned SELL on the skew matrix: K1 once per bucket, K5 once a call
+    on the buckets' outputs in place; and auto_format's binned route on a
+    skewed 65536^2 CSR. Returns K5's launches here."""
     t0 = time.perf_counter()
     f = BinnedSellMatrix.from_dense(a_s, device=dev)
+    k5 = 0
     print(f"-- binned SELL on the skew matrix: {f!r}, pack + upload "
           f"{time.perf_counter() - t0:.1f} s")
     for x in (x1_s, x8_s):
@@ -1228,6 +1379,7 @@ def check_binned(a_s, x1_s, x8_s, dev) -> None:
         require(counts == {"sell_spmv": len(f.widths), "permute": 1},
                 f"binned B={batch}: K1 x{len(f.widths)} and K5 x1 expected")
         require(err <= ATOL, f"binned B={batch} disagrees with the oracle")
+        k5 += counts["permute"]
     n = 65536
     rng = np.random.default_rng(0)
     rows = np.sort(rng.integers(0, n, 200))
@@ -1247,6 +1399,7 @@ def check_binned(a_s, x1_s, x8_s, dev) -> None:
     print(f"   auto_format(65536^2 skewed CSR, B=48) -> {b!r}; "
           f"|y-oracle|={err:.3e}")
     require(err <= ATOL, "binned route disagrees with the oracle")
+    return k5
 
 
 def repeated_entries_csr() -> CsrMatrix:
@@ -1371,6 +1524,7 @@ def main() -> int:
                             lambda x: reference.sgemm_cpu(x, a),
                             (x1[None, :], x8), dev)
     check_device_plan(a, x1, dev)
+    sweep = check_awsp_sweep(dev)
     check_lanes(a, x8, dev)
 
     a_s = generators.random_sparse_matrix(
@@ -1385,6 +1539,7 @@ def main() -> int:
                                  lambda x: reference.sgemm_cpu(x, a_s),
                                  (x1_s[None, :], x8_s), dev)
     check_asp_device_plan(asp, a_s, x8_s, dev)
+    fused_cost = fused_unpermute_cost(r, x1_s, x8_s, dev)
     check_rsell_bodies(dev)
 
     a_b = generators.block_pruned_matrix(
@@ -1422,7 +1577,7 @@ def main() -> int:
                                  lambda x: reference.sgemm_cpu(x, a),
                                  (x1[None, :], x8), dev)
     check_bell_block_sizes(dev)
-    check_binned(a_s, x1_s, x8_s, dev)
+    binned_k5 = check_binned(a_s, x1_s, x8_s, dev)
     _, k11_row = floors_study(dev)
 
     kernels = kernel_rows(results, launches, {}) + \
@@ -1440,7 +1595,21 @@ def main() -> int:
                 registry_blocks[row["name"]]["by_batch"].items()}}
     for row in kernels:
         row["launches_all_paths"] = TOTALS[row["name"]]
-    print("launches summed over all paths:", json.dumps(TOTALS))
+        if row["name"] == "awsp_spmv":      # the sweep's live-1/4 points
+            row["live_quarter"] = {str(b): sweep["by_point"][f"live=0.25,B={b}"]
+                                   for b in BATCHES}
+            row["sweep"] = sweep["by_point"]
+            row["device_plan"] = sweep["device_plan"]
+        if row["name"] == "permute":
+            # K5 runs on binned SELL's path now: its launches are the binned
+            # calls' (the full registry's sell_binned_cuda and phase 14's);
+            # a sorted RSELL pack's unpermute rides K4 (fused_unpermute)
+            row["launches"] = full_launches["sell_binned_cuda"]["permute"] \
+                + binned_k5
+            row["fused_unpermute"] = dict(fused_cost,
+                                          runs_fused=FUSED_UNPERMUTES[0])
+    print("launches summed over all paths:", json.dumps(TOTALS),
+          f"; sorted-RSELL unpermutes done by K4: {FUSED_UNPERMUTES[0]}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card["line"])

@@ -24,7 +24,13 @@ asynchronously and K1's ring kernel bulk-copies its tiles. K1 (every batch size 
 than the rows, one window, W = 8), K12 (every block_m it takes, W up to
 1024, empty and full columns), K6 (block_m 8-512) and K7 (W 1-128, both
 at B in {1, 2, 3, 5, 8, 9, 16}, empty packs) are also held to the same
-bits on two calls; K4 keeps its bits after K6 and K7 calls. K9 (one
+bits on two calls; K4 keeps its bits after K6 and K7 calls. K3 (one
+kernel a call, its live rows split on the device, summed like K2) is held
+at the live fractions 0, 1/16, 1/4 and 1, with fp32 and bf16 values, to
+the same bits on two calls, and its device plan's kernel to the plain
+plan bit for bit; a sorted RSELL pack's call is K4 alone, its unpermute in
+the second kernel, the same bits as K4 then K5; a binned call is K1 a
+bucket and one K5, with no ``torch.cat``. K9 (one
 kernel a call, summed across its cluster in distributed shared memory) is
 held at every cluster size, with lda % 4 != 0 and A off 16-byte
 alignment, through static, device and explicit plans; K4 (two kernels a
@@ -49,7 +55,8 @@ from tpusparse_torch.formats import tcsr as tcsr_mod
 from tpusparse_torch.formats.bell import _mask_to_words
 from tpusparse_torch.kernels.asp_spmv import asp_spmm, asp_spmm_plain
 from tpusparse_torch.kernels.awsp_spmv import (awsp_spmm, awsp_spmm_plain,
-                                               device_group_plan)
+                                               device_group_plan,
+                                               device_group_plan_plain)
 from tpusparse_torch.kernels.bell_spmv import bell_spmm, bell_spmm_plain
 from tpusparse_torch.kernels.bsell_spmv import (bsell_plans, bsell_spmm,
                                                bsell_spmm_plain)
@@ -58,7 +65,8 @@ from tpusparse_torch.kernels.dia_spmv import dia_spmv, dia_spmv_plain, fits
 from tpusparse_torch.kernels.dense import dense_cuda, dense_plain
 from tpusparse_torch.kernels.permute import (permute_columns,
                                              permute_columns_plain)
-from tpusparse_torch.kernels.rsell_spmv import rsell_spmm, rsell_spmm_plain
+from tpusparse_torch.kernels.rsell_spmv import (rsell_spmm, rsell_spmm_plain,
+                                                unpermute_lanes)
 from tpusparse_torch.kernels.sell_grad import sell_dvals, sell_dvals_plain
 from tpusparse_torch.kernels.sell_mxu_spmm import (sell_mxu_spmm,
                                                    sell_mxu_spmm_plain)
@@ -242,7 +250,7 @@ def test_dense_kernel_edges(cuda, m, n, offset, batch):
 
 
 def _fused_cases(dev):
-    """K1, K2, K11, K12, K6 and K7 at two shapes each (K6 and K7 sum their
+    """K1, K2, K11, K12, K3, K6 and K7 at two shapes each (K6 and K7 sum their
     items in a second kernel, a different one at 8 batch rows and at 3):
     (name, call) pairs, the call returning the kernel's output and its
     plain version's."""
@@ -270,6 +278,11 @@ def _fused_cases(dev):
                      plan=b._work),
             bsr_spmm_plain(b.bi, b.bj, b.blocks, xt, n_padded=b.padded[1],
                            n=n))))
+        w = AwspMatrix.from_dense(a, g=2, device=dev)
+        wp, wk = w._full_plan(), w._count(w.n_groups)
+        cases.append((f"awsp {m}x{n}", lambda w=w, wp=wp, wk=wk, xt=xt, n=n: (
+            awsp_spmm(wp, wk, w.idx, w.vals, xt, g=2, n=n),
+            awsp_spmm_plain(wp, wk, w.idx, w.vals, xt, g=2, n=n))))
         t = TcsrMatrix.from_dense(a, device=dev)
         assert t.vals.shape[0] > 0
         cases.append((f"bsell {m}x{n}", lambda t=t, xt=xt, n=n: (
@@ -281,8 +294,8 @@ def _fused_cases(dev):
 
 
 def test_fused_reduce_is_deterministic_and_resets(cuda):
-    """K2, K11 and K12 sum their slices in the kernel (K1, K6 and K7 in a
-    reduce pass):
+    """K2, K11, K12 and K3 sum their slices in the kernel (K1, K6 and K7 in
+    a reduce pass):
     two calls back to back give the same bits, and a call after a call of
     another shape still matches (the arrival counters are back at 0)."""
     cases = _fused_cases(cuda)
@@ -315,10 +328,11 @@ def test_fused_reduce_on_two_streams(cuda):
 
 
 def test_one_kernel_per_call(cuda):
-    """torch.profiler sees exactly one CUDA kernel per K2, K11, K12 and K9
-    call (K9 sums its cluster's slices in the kernel), and two per K4 call
-    (its items, then the group sum); the plain versions are not called
-    here."""
+    """torch.profiler sees exactly one CUDA kernel per K2, K11, K12, K9 and
+    K3 call (K9 sums its cluster's slices in the kernel, K3 its parts), one
+    for the device plan, two per K4 call (its items, then the group sum)
+    and two per sorted RSELL call (the sum writes the user's column order);
+    the plain versions are not called here."""
     a, x, _ = _workload("full", 8)
     at, xt = torch.from_numpy(a).to(cuda), torch.from_numpy(x).to(cuda)
     f = SellMatrix.from_dense(a, device=cuda)
@@ -327,7 +341,21 @@ def test_one_kernel_per_call(cuda):
     r = RsellMatrix.from_dense(a, device=cuda)
     plan = h._full_plan()
     k = h._count(plan.numel())
-    calls = {"dense": (1, lambda: dense_cuda(at, xt)),
+    w = AwspMatrix.from_dense(a, g=8, device=cuda)
+    wp, wk = w._full_plan(), w._count(w.n_groups)
+    skew = _skewed("run")
+    rs = RsellMatrix.from_dense(skew, device=cuda)
+    xs = torch.from_numpy(generators.random_sparse_batch(8, 512, 0.5,
+                                                          seed=1)).to(cuda)
+    assert rs.unpermute is not None
+    binned = BinnedSellMatrix.from_dense(skew, device=cuda)
+    calls = {"awsp": (1, lambda: awsp_spmm(wp, wk, w.idx, w.vals, xt, g=8,
+                                           n=4096)),
+             # K1 (and its reduce) a bucket, then K5: no copy between
+             "binned": (2 * len(binned.widths) + 1, lambda: binned.spmm(xs)),
+             "plan": (1, lambda: device_group_plan(xt, w.n_groups, w.span)),
+             "sorted rsell": (2, lambda: rs.spmm(xs)),
+             "dense": (1, lambda: dense_cuda(at, xt)),
              "mxu": (1, lambda: sell_mxu_spmm(f.idx, f.vals, xt, n=4096)),
              "bell": (1, lambda: bell_spmm(g.bitmap, g.vals, xt,
                                            block_m=g.block_m, n=4096)),
@@ -500,6 +528,108 @@ def test_awsp_device_plan_has_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode("default")
     _close(y, reference.sgemm_cpu(x, a), 1e-3)
     assert int(torch.count_nonzero(y0)) == 0
+
+
+def _live_x(m, g, live, batch, seed):
+    """x (batch, m) live in a random round(live * ng) of the ng groups of
+    g*128 rows, the pattern shared by the batch rows."""
+    ng = -(-m // (g * 128))
+    rng = np.random.default_rng(seed)
+    x = generators.random_sparse_batch(batch, m, 0.5, seed=seed)
+    mask = np.zeros(ng * g * 128, bool)
+    for gi in rng.choice(ng, size=int(round(live * ng)), replace=False):
+        mask[gi * g * 128:(gi + 1) * g * 128] = True
+    return np.where(mask[:m], x, 0).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 3, 8, 9])
+@pytest.mark.parametrize("live", [0.0, 0.0625, 0.25, 1.0])
+def test_awsp_kernel_live_fractions(cuda, live, batch, dtype):
+    """K3 at live fractions, by the device plan and the host plan: within
+    1e-4 of its plain version and 1e-3 of the oracle, the same bits on two
+    calls (its fused sum), and the plan kernel's plan the plain one's."""
+    m, n, g = 4096, 1000, 2
+    a = generators.random_sparse_matrix(m, n, density=0.5, seed=40)
+    f = AwspMatrix.from_dense(a, g=g, dtype=getattr(torch, dtype),
+                              device=cuda)
+    x = _live_x(m - 3, g, live, batch, seed=41)     # x narrower than A's rows
+    xt = torch.from_numpy(x).to(cuda)
+    plan, k = device_group_plan(xt, f.n_groups, f.span)
+    want = device_group_plan_plain(xt, f.n_groups, f.span)
+    assert torch.equal(plan, want[0]) and torch.equal(k, want[1])
+    hp = torch.from_numpy(f.plan(x)).to(cuda)
+    for p, kk in ((plan, k), (hp, f._count(hp.numel()))):
+        y = awsp_spmm(p, kk, f.idx, f.vals, xt, g=g, n=n)
+        y2 = awsp_spmm(p, kk, f.idx, f.vals, xt, g=g, n=n)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y2)
+        _close(y, awsp_spmm_plain(p, kk, f.idx, f.vals, xt, g=g, n=n), 1e-4)
+        dense = f.to_dense().float().numpy()
+        _close(y, reference.sgemm_cpu(np.pad(x, ((0, 0), (0, 3))), dense),
+               1e-3)
+    if live == 0.0:
+        assert int(torch.count_nonzero(y)) == 0
+
+
+@pytest.mark.parametrize("batch", [1, 2, 8, 32])
+@pytest.mark.parametrize("shape", [(4096, 8 * 128), (4096, 128),
+                                   (1000, 256), (70000, 128)])
+def test_group_plan_kernel_matches_plain(cuda, shape, batch):
+    """The plan kernel's (plan, k) equal device_group_plan_plain's bit for
+    bit: live 0, a few groups, all, x narrower than the groups, x off
+    16-byte alignment (its 4-byte loads)."""
+    m, span = shape
+    ng = -(-m // span)
+    rng = np.random.default_rng(m + batch)
+    for live in (0.0, 0.0625, 0.25, 1.0):
+        x = _live_x(m, span // 128, live, batch, seed=int(rng.integers(99)))
+        for xt in (torch.from_numpy(x).to(cuda),
+                   torch.from_numpy(np.ascontiguousarray(x[:, :m - 5]))
+                   .to(cuda)):
+            got = device_group_plan(xt, ng, span)
+            want = device_group_plan_plain(xt, ng, span)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+        buf = torch.zeros(batch * m + 1, device=cuda)
+        off = buf[1:].view(batch, m)
+        off.copy_(torch.from_numpy(x))
+        got = device_group_plan(off, ng, span)
+        want = device_group_plan_plain(off, ng, span)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 9])
+@pytest.mark.parametrize("name", ["run", "flat", "selecting", "full"])
+def test_rsell_fused_unpermute(cuda, name, batch):
+    """K4 with the unpermute in its second kernel: the same bits as K4 in
+    the pack's order then K5, within 1e-4 of the plain K4 + K5; a
+    selecting gather (dead lanes, lanes past the pack) reads 0 there."""
+    a = _skewed("run" if name == "selecting" else name)
+    r = RsellMatrix.from_dense(a, device=cuda)
+    np_ = r.padded[1]
+    if name == "selecting":
+        rng = np.random.default_rng(3)
+        src = rng.permutation(np_ + 64)[:500].astype(np.int64) - 32
+        src[::9] = -1
+        u = unpermute_lanes(src, np_, cuda)
+        assert not u.complete
+    else:
+        u = r.unpermute
+        assert u is not None and u.complete
+    x = generators.random_sparse_batch(batch, a.shape[0], 0.5, seed=batch)
+    xt = torch.from_numpy(x).to(cuda)
+    args = (r.cj, r.ct, r.idx, r.vals, xt)
+    y = rsell_spmm(*args, n_padded=np_, plan=r._work, unpermute=u)
+    y2 = rsell_spmm(*args, n_padded=np_, plan=r._work, unpermute=u)
+    pack_order = rsell_spmm(*args, n_padded=np_, plan=r._work)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2)
+    assert torch.equal(y, permute_columns(pack_order, u.src))
+    _close(y, permute_columns_plain(rsell_spmm_plain(*args, n_padded=np_),
+                                    u.src), 1e-4)
+    if name != "selecting":
+        _close(r.spmm(xt), reference.sgemm_cpu(x, a), 1e-3)
 
 
 # RSELL packs: (m, n, density, distribution, seed, sorted, run)
@@ -703,6 +833,7 @@ def test_public_path_launches_the_kernels(cuda):
     wrappers = (sell_spmm, awsp_spmm, dense_cuda, rsell_spmm,
                 permute_columns, asp_spmm)
     before = [w.launches for w in wrappers]
+    fused = rsell_spmm.unpermutes
     SellMatrix.from_dense(a, device=cuda).spmm(x)
     AwspMatrix.from_dense(a, device=cuda).spmm(x)
     dense_cuda(torch.from_numpy(a).to(cuda), torch.from_numpy(x).to(cuda))
@@ -715,7 +846,9 @@ def test_public_path_launches_the_kernels(cuda):
     assert isinstance(f, AspMatrix)
     tpusparse_torch.spmm(f, np.stack([xs] * 8))
     after = [w.launches for w in wrappers]
-    assert all(u == v + 1 for u, v in zip(after, before))
+    # the sorted pack's unpermute rides K4: no K5 launch
+    assert [u - v for u, v in zip(after, before)] == [1, 1, 1, 1, 0, 1]
+    assert rsell_spmm.unpermutes == fused + 1
 
 
 # block-structured matrices: name -> (m, n, kind, seed)
@@ -1166,7 +1299,9 @@ def test_sell_mxu_kernel(cuda, size, batch):
 
 
 def test_binned_public_path_launches(cuda):
-    """Binned SELL on the skew matrix: K1 once per bucket, K5 once."""
+    """Binned SELL on the skew matrix: K1 once per bucket, then K5 once on
+    the buckets' outputs in place, with no torch.cat between (the
+    profiler sees no copy kernel)."""
     a = _skewed("full")
     f = BinnedSellMatrix.from_dense(a, device=cuda)
     x = generators.random_sparse_batch(8, a.shape[0], 0.5, seed=0)
@@ -1180,6 +1315,14 @@ def test_binned_public_path_launches(cuda):
     assert permute_columns.launches - k5 == 2
     _close(y8, reference.sgemm_cpu(x, a), 1e-3)
     _close(y1, reference.sgemv_cpu(x[0], a), 1e-3)
+    cats = []
+    cat = torch.cat
+    torch.cat = lambda *args, **kw: cats.append(1) or cat(*args, **kw)
+    try:
+        f.spmm(xt)
+    finally:
+        torch.cat = cat
+    assert not cats
 
 
 @pytest.mark.parametrize("name", ["ell_torch", "bell_cuda",

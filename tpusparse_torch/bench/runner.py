@@ -64,9 +64,10 @@ class BenchResult:
 def device_time(fn: Callable[..., Any], *args: Any, name: str = "kernel",
                 bytes_moved: int | None = None, flops: int | None = None,
                 nnz: int | None = None, warmup: int = 3,
-                reps: int = 20) -> BenchResult:
+                reps: int = 20, spin: int = SPIN_CYCLES) -> BenchResult:
     """Median per-call device seconds of ``fn(*args)`` over ``reps`` timed
-    launches, each after an L2 flush."""
+    launches, each after an L2 flush and a ``spin``-cycle wait (raise it
+    for a call whose host code takes longer than ~100 us to enqueue)."""
     _require_cuda()
     scratch = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32,
                           device="cuda")
@@ -76,7 +77,7 @@ def device_time(fn: Callable[..., Any], *args: Any, name: str = "kernel",
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     for start, end in events:
         scratch.sum()                   # read-only L2 flush
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start.record()
         fn(*args)
         end.record()

@@ -35,10 +35,13 @@ __device__ __forceinline__ Item load_item(const int* __restrict__ items, int i) 
 }
 
 // y[b, c] = group c / 128's partials added in item order from 0.f, one
-// thread an output (b, c).
+// thread an output (b, c). kDst: the sum goes to y[b, dst[c]] (rows ldy
+// apart; nowhere where dst[c] < 0), as in group_reduce_kernel.
+template <bool kDst>
 static __global__ void __launch_bounds__(256)
 item_reduce_kernel(const int* __restrict__ gptr, const float* __restrict__ part,
-                   float* __restrict__ y, int batch, int n) {
+                   float* __restrict__ y, int batch, int n, const int* __restrict__ dst,
+                   int ldy) {
   const int e = blockIdx.x * 256 + threadIdx.x;
   if (e >= batch * n) return;
   const int b = e / n, c = e - b * n, j = c / kLanes;
@@ -47,18 +50,26 @@ item_reduce_kernel(const int* __restrict__ gptr, const float* __restrict__ part,
   const float* p = part + ((size_t)i0 * batch + b) * kLanes + (c - j * kLanes);
   float s = 0.f;
   for (int i = i0; i < i1; ++i, p += step) s += *p;
-  y[e] = s;
+  if (!kDst)
+    y[e] = s;
+  else if (dst[c] >= 0)
+    y[(size_t)b * ldy + dst[c]] = s;
 }
 
-// The second pass over a call's partials (nitems, batch, 128) into y
-// (batch, n), n <= groups * 128.
+// The second pass over a call's partials (nitems, batch, 128): the pack's
+// columns c < n (n <= groups * 128) into y (batch, n), or, with dst (K4's
+// fused unpermute), into y (batch, ldy) at columns dst[c].
 inline void launch_items_reduce(const int* gptr, const float* part, float* y, int batch, int n,
-                                cudaStream_t st) {
+                                cudaStream_t st, const int* dst = nullptr, int ldy = 0) {
   if (batch <= 0 || n <= 0) return;
-  if (batch_tile(batch) == 8)
-    item_reduce_kernel<<<(batch * n + 255) / 256, 256, 0, st>>>(gptr, part, y, batch, n);
+  if (batch_tile(batch) != 8)
+    launch_group_reduce(gptr, part, y, batch, n, st, dst, ldy);
+  else if (dst != nullptr)
+    item_reduce_kernel<true><<<(batch * n + 255) / 256, 256, 0, st>>>(gptr, part, y, batch, n,
+                                                                     dst, ldy);
   else
-    launch_group_reduce(gptr, part, y, batch, n, st);
+    item_reduce_kernel<false><<<(batch * n + 255) / 256, 256, 0, st>>>(gptr, part, y, batch, n,
+                                                                      nullptr, 0);
 }
 
 }  // namespace tps

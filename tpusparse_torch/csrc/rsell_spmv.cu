@@ -37,6 +37,9 @@
 // order (block_items.cuh: the group reduce of work_items.cuh at 1-4 batch
 // rows, which splits the skewed pack's first group over 32 slices, and one
 // thread an output at 8, which measured 2-3 us faster there on both packs).
+// On a column-sorted pack that second kernel also undoes the sort: it sums
+// the pack's columns in pack order, as ever, and writes each to its place in
+// the user's order (dst), so the K5 launch that used to follow is gone.
 #include <climits>
 
 #include "block_items.cuh"
@@ -213,11 +216,14 @@ void launch_rsell(dim3 grid, cudaStream_t st, const int* items, const int8_t* id
 // ct: (nchunk,) int32 each chunk's x window (read at one batch row);
 // idx/vals: (nchunk, 8, 128) int8 / fp32, 16-byte aligned; x: (batch, ldx)
 // fp32 (missing columns read as 0); part: (nitems, batch, 128) fp32
-// scratch; y: (batch, n) fp32, n <= nb*128.
+// scratch; y: (batch, n) fp32, n <= nb*128, in the pack's column order, or,
+// with dst (n,) int32 (a column-sorted pack's unpermute, done by the second
+// kernel with no launch of its own), y: (batch, ldy) with the pack's column
+// c at y's column dst[c] (nowhere where dst[c] < 0); dst null: none.
 extern "C" int tps_rsell_spmm(const void* items, const void* gptr, const void* ct,
                               const void* idx, const void* vals, const void* x, void* part,
-                              void* y, int nitems, int batch, int ldx, int n, int device,
-                              void* stream) {
+                              void* y, const void* dst, int nitems, int batch, int ldx, int n,
+                              int ldy, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const auto st = static_cast<cudaStream_t>(stream);
@@ -242,6 +248,6 @@ extern "C" int tps_rsell_spmm(const void* items, const void* gptr, const void* c
     }
   }
   tps::launch_items_reduce(static_cast<const int*>(gptr), pp, static_cast<float*>(y), batch, n,
-                           st);
+                           st, static_cast<const int*>(dst), ldy);
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,15 @@
 // The fixed-order split-contraction reduce, fused into the kernel that
 // writes the partial sums (K2 dense.cu, K11 sell_mxu_spmm.cu, K12
-// bell_spmv.cu), so that a call is one launch.
+// bell_spmv.cu, K3 awsp_spmv.cu), so that a call is one launch.
 //
 // Every block of a (column group, batch tile) writes its slice's partial
 // sums to part[(slice * batch + b) * ldp + c], then calls split_reduce_tail:
-// the block publishes its writes (__threadfence) and counts its arrival on
-// the group's counter with one atomicAdd. The block that arrives last sums
+// after a barrier one thread counts the block's arrival on the group's
+// counter with one release-acquire atomic (the barrier and the release
+// publish the whole block's writes; the acquire and the next barrier give
+// the last block the other blocks' writes, the order of CUTLASS's
+// semaphore; two __threadfence() in its place measured 0.2-0.7 us slower
+// on K3, PERF.md). The block that arrives last sums
 // the slices in order 0 .. slices-1 from 0.f, as reduce_partials_kernel
 // (sell_common.cuh) does, writes y and sets the counter back to 0 for the
 // next call. Which block comes last varies; the order of the sum does not,
@@ -21,10 +25,11 @@
 // registers count against the whole kernel's occupancy), copies them
 // from as many slices as the scratch holds into its own part of shared
 // memory (cp.async, all in flight at once; the 16-byte form reads L2,
-// where the other blocks' fenced writes are), then adds them up in order
+// where the other blocks' published writes are), then adds them up in order
 // in registers. No index is divided in the copy loop.
 #pragma once
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 
 #include "async_copy.cuh"
@@ -43,16 +48,17 @@ __device__ __forceinline__ void split_reduce_tail(const float* part, float* __re
                                                   int c0, int cols, float* scratch,
                                                   int scratch_floats) {
   __shared__ int last;
-  __threadfence();   // this block's partial sums are visible before it counts
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(counter, 1) == slices - 1;
+  __syncthreads();   // the block's partial sums are written
+  if (threadIdx.x == 0) {
+    cuda::atomic_ref<int, cuda::thread_scope_device> arrived(*counter);
+    last = arrived.fetch_add(1, cuda::memory_order_acq_rel) == slices - 1;
+  }
   __syncthreads();
   if (!last) return;
   if (rows <= 0 || cols <= 0) {     // nothing of y here; the counter still resets
     if (threadIdx.x == 0) *counter = 0;
     return;
   }
-  __threadfence();   // ... and the other blocks' before the last one reads them
   constexpr int width = kVec ? 4 : 1;             // floats a word
   const int cw = (cols + width - 1) / width;      // words a row
   const int per = rows * cw;                      // words a slice

@@ -19,11 +19,18 @@ namespace tps {
 // block of 32 columns x 32 item slices splits each group's items: thread
 // (c, r) adds items i0 + r, i0 + r + 32, ... in order, and the 32 slice sums
 // of a column are added in slice order (deterministic).
+//
+// kDst (K4 on a column-sorted pack): the sum of the pack's column c is
+// written to y's column dst[c] (nowhere where dst[c] < 0), y's rows ldy
+// apart: the unpermute of the pack-order sum, bit for bit, with no launch of
+// its own; the blocks still read the partials in pack order, coalesced.
 constexpr int kRedCols = 32, kRedSlices = 32;
 
+template <bool kDst>
 static __global__ void __launch_bounds__(kRedCols * kRedSlices)
 group_reduce_kernel(const int* __restrict__ gptr, const float* __restrict__ part,
-                    float* __restrict__ y, int batch, int n) {
+                    float* __restrict__ y, int batch, int n, const int* __restrict__ dst,
+                    int ldy) {
   constexpr int lanes = 128;
   __shared__ float red[kRedSlices][kRedCols + 1];
   const int c = threadIdx.x, r = threadIdx.y, b = blockIdx.y;
@@ -41,19 +48,30 @@ group_reduce_kernel(const int* __restrict__ gptr, const float* __restrict__ part
     float t = 0.f;
 #pragma unroll
     for (int q = 0; q < kRedSlices; ++q) t += red[q][c];
-    if (j * lanes + col < n) y[(size_t)b * n + j * lanes + col] = t;
+    if (j * lanes + col < n) {
+      if (!kDst)
+        y[(size_t)b * n + j * lanes + col] = t;
+      else if (dst[j * lanes + col] >= 0)
+        y[(size_t)b * ldy + dst[j * lanes + col]] = t;
+    }
   }
 }
 
-// Launch the reduce for y (batch, n): one block per 32 columns and batch row.
-// A group with no items writes zeros.
+// Launch the reduce of the pack's columns c < n for y (batch, n), or, with
+// dst, for y (batch, ldy) through dst: one block per 32 columns and batch
+// row. A group with no items writes zeros.
 inline void launch_group_reduce(const int* gptr, const float* part, float* y,
-                                int batch, int n, cudaStream_t st) {
+                                int batch, int n, cudaStream_t st,
+                                const int* dst = nullptr, int ldy = 0) {
   if (batch <= 0 || n <= 0) return;
   const int groups = (n + 127) / 128;
   const dim3 grid(groups * (128 / kRedCols), batch);
-  group_reduce_kernel<<<grid, dim3(kRedCols, kRedSlices), 0, st>>>(gptr, part, y,
-                                                                  batch, n);
+  if (dst != nullptr)
+    group_reduce_kernel<true><<<grid, dim3(kRedCols, kRedSlices), 0, st>>>(gptr, part, y, batch,
+                                                                           n, dst, ldy);
+  else
+    group_reduce_kernel<false><<<grid, dim3(kRedCols, kRedSlices), 0, st>>>(gptr, part, y, batch,
+                                                                            n, nullptr, 0);
 }
 
 }  // namespace tps

@@ -176,7 +176,8 @@ class AwspMatrix(PlanSkip):
         ng = self.n_groups
         rows = ng * self.g * _LANES
         xw = np.zeros(rows, dtype=bool)
-        xw[:m] = (x2d[:, :m] != 0).any(axis=0)
+        cols = min(m, x2d.shape[1])     # x may be narrower: the rest is 0
+        xw[:cols] = (x2d[:, :cols] != 0).any(axis=0)
         active = np.nonzero(xw.reshape(ng, self.g * _LANES).any(axis=1))[0]
         if active.size == 0:
             active = np.array([ng])

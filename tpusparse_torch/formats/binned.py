@@ -5,10 +5,11 @@ bit. Output columns are sorted by nnz (stable), grouped into 128-column
 groups, and each group goes to the bucket whose SELL width is the smallest
 level (``_pick_levels``: quantiles of the groups' width demand) that covers
 its widest window. Each bucket is a SELL pack run by K1
-(``kernels/sell_spmv.py``); the buckets' outputs are concatenated and the
-column order is undone by K5 (``kernels/permute.py``), whose source lanes
-come from the JAX package's permute plan. On a power-law matrix the dense
-head pays a wide bucket while the long tail pays a narrow one.
+(``kernels/sell_spmv.py``); K5 (``kernels/permute.py``) then reads the
+buckets' outputs in place, as their concatenation, and undoes the column
+order through source lanes made from the JAX package's permute plan. On a
+power-law matrix the dense head pays a wide bucket while the long tail
+pays a narrow one.
 
 The JAX package sizes each bucket's Pallas grid with ``tune.sell_geometry``
 (TPU step geometry); K1 picks its own launch shape, so that is not ported.
@@ -195,7 +196,7 @@ class BinnedSellMatrix:
         x2d = x2d.contiguous()
         # no padding to the packed rows: K1 reads them as zero
         parts = [sell_spmm(b["idx"], b["vals"], x2d) for b in self.buckets]
-        return permute_columns(torch.cat(parts, dim=1), self.perm_src)
+        return permute_columns(parts, self.perm_src)
 
     def spmv(self, x) -> torch.Tensor:
         """x: (m,) -> y = x @ A, (n,)."""

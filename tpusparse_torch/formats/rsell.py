@@ -10,8 +10,10 @@ JAX package packs them before its TPU-only ``(cj << 16) | ct`` plan.
 Packing runs on the host in numpy (the JAX package's numpy path; its C++
 path is bit-identical to it and is not ported). ``sort="auto"`` sorts the
 columns by nnz exactly when the router's skew test fires, and a sorted pack
-carries the inverse permutation and its K5 plan; ``RsellMatrix`` unpermutes
-its output with K5. The kernel is K4 (``kernels/rsell_spmv.py``).
+carries the inverse permutation and its K5 plan, turned into one source
+lane per output column and its inverse (``Unpermute``); ``RsellMatrix``
+hands those to K4 (``kernels/rsell_spmv.py``), whose second kernel writes
+the output in the user's column order, so a product is K4 alone.
 ``rsell_shard_pack`` (the multi-device packer) is not part of this port yet.
 """
 
@@ -25,10 +27,9 @@ import torch
 from tpusparse_torch.formats.csr import (CsrMatrix, col_window_widths,
                                          csr_rows_subset, segment_ranks)
 from tpusparse_torch.formats.sell import _sorted_rows, as_input
-from tpusparse_torch.kernels.permute import (permute_columns, permute_plan,
-                                             source_lanes)
+from tpusparse_torch.kernels.permute import permute_plan, source_lanes
 from tpusparse_torch.kernels.rsell_spmv import (check_plan_ids, rsell_plans,
-                                                rsell_spmm)
+                                                rsell_spmm, unpermute_lanes)
 from tpusparse_torch.utils import resolve_device, round_up
 
 _LANES = 128
@@ -194,9 +195,11 @@ class RsellMatrix:
         self.perm_plan = perm_plan     # the JAX-layout (oidx, oh), numpy
         check_plan_ids(*self.padded)
         dev = self.device
-        # K5 reads one int32 source lane per output column
-        self.perm_src = None if perm_plan is None else torch.from_numpy(
-            source_lanes(*perm_plan, self.shape[1])).to(dev)
+        # one source lane per output column, and its inverse, which K4's
+        # second kernel writes through
+        self.unpermute = None if perm_plan is None else unpermute_lanes(
+            source_lanes(*perm_plan, self.shape[1]), self.padded[1], dev)
+        self.perm_src = None if perm_plan is None else self.unpermute.src
         # K4's work plans, one per batch tile, built once from host copies
         self._work = None if dev.type != "cuda" else rsell_plans(
             cj.cpu().numpy(), ct.cpu().numpy(), self.padded[1] // _LANES,
@@ -256,13 +259,11 @@ class RsellMatrix:
         if x2d.ndim != 2 or x2d.shape[1] > mp:
             raise ValueError(f"x must be (b, <={mp}), got {tuple(x2d.shape)}")
         # no padding to the packed rows: the kernel reads them as zero
-        y = rsell_spmm(self.cj, self.ct, self.idx, self.vals,
-                       x2d.contiguous(), n_padded=np_,
-                       n=np_ if self.perm_src is not None else self.shape[1],
-                       plan=self._work)
-        if self.perm_src is not None:
-            return permute_columns(y, self.perm_src)
-        return y
+        # a sorted pack: K4's second kernel writes the user's column order
+        n = self.shape[1] if self.unpermute is None else None
+        return rsell_spmm(self.cj, self.ct, self.idx, self.vals,
+                          x2d.contiguous(), n_padded=np_, n=n,
+                          plan=self._work, unpermute=self.unpermute)
 
     def spmv(self, x) -> torch.Tensor:
         """x: (m,) -> y = x @ A, (n,)."""

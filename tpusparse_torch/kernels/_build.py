@@ -31,7 +31,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("sell_spmv.cu", "dense.cu", "awsp_spmv.cu", "rsell_spmv.cu",
            "permute.cu", "asp_spmv.cu", "bsr_spmv.cu", "bsell_spmv.cu",
            "dia_spmv.cu", "sell_grad.cu", "bell_spmv.cu",
-           "sell_mxu_spmm.cu")
+           "sell_mxu_spmm.cu", "group_plan.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
@@ -40,17 +40,19 @@ _SIGNATURES = {
     # idx, vals, vals_kind, x, scales, part, y, nb, nt, w, batch, ldx,
     # slices, per_slice, n, bb, stages, device, stream
     "tps_sell_spmm": [_P, _P, _I, _P, _P, _P, _P] + [_I] * 11 + [_P],
-    # plan, count, idx, vals, vals_kind, x, part, y, nb, ntot, g, plan_len,
-    # w, batch, ldx, slices, per_slice, n, device, stream
-    "tps_awsp_spmm": [_P, _P, _P, _P, _I, _P, _P, _P] + [_I] * 11 + [_P],
+    # plan, count, idx, vals, vals_kind, x, part, y, counters, nb, ntot, g,
+    # plan_len, w, batch, ldx, slices, n, device, stream
+    "tps_awsp_spmm": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 10 + [_P],
+    # x, plan, count, counters, batch, ldx, ng, span, device, stream
+    "tps_group_plan": [_P] * 4 + [_I] * 5 + [_P],
     # a, x, part, y, counters, m, n, batch, slices, per_slice, device,
     # stream
     "tps_dense_spmm": [_P] * 5 + [_I] * 6 + [_P],
-    # items, gptr, ct, idx, vals, x, part, y, nitems, batch, ldx, n,
-    # device, stream
-    "tps_rsell_spmm": [_P] * 8 + [_I] * 5 + [_P],
-    # y, src, out, batch, ldy, n, device, stream
-    "tps_permute_columns": [_P, _P, _P] + [_I] * 4 + [_P],
+    # items, gptr, ct, idx, vals, x, part, y, src, nitems, batch, ldx, n,
+    # ldy, device, stream
+    "tps_rsell_spmm": [_P] * 9 + [_I] * 6 + [_P],
+    # y0, y1, y2, src, out, ld0, ld1, ld2, batch, n, device, stream
+    "tps_permute_columns": [_P] * 5 + [_I] * 6 + [_P],
     # plan, count, a, x, y, rows, lda, n, batch, ldx, plan_len, cluster,
     # device, stream
     "tps_asp_spmm": [_P] * 5 + [_I] * 8 + [_P],

@@ -11,6 +11,12 @@ on the card a gather is one load a thread, so ``source_lanes`` turns
 (oidx, oh) into one int32 source lane per output lane, once, when a pack is
 built, and the kernel reads only that.
 
+``y`` may be a list of up to three parts read as their concatenation
+along the columns: binned SELL hands K5 its buckets' K1 outputs as they
+are, with no ``torch.cat`` between. A column-sorted RSELL pack launches no
+K5: K4's second kernel writes through the inverse of the same source lanes
+(``kernels/rsell_spmv.py:Unpermute``).
+
 Bound: bytes — y, ``src`` and the output each touched once (96 KB at
 B = 1, n = 8192), far below the launch latency, so a call's time is its
 launch. ``permute_columns`` launches the CUDA kernel for CUDA tensors and
@@ -27,6 +33,7 @@ from tpusparse_torch.utils import round_up
 
 _LANES = 128
 _HB = 8          # the JAX plan pads the output groups to a multiple of 8
+MAX_PARTS = 3    # csrc/permute.cu kPermuteParts: binned SELL's buckets at most
 
 
 def permute_plan(perm_src: np.ndarray, src_size: int | None = None) -> dict:
@@ -65,29 +72,49 @@ def source_lanes(oidx: np.ndarray, oh: np.ndarray, n: int) -> np.ndarray:
     return np.where(live, src, -1).reshape(-1)[:n].astype(np.int32)
 
 
-def permute_columns_plain(y: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K5 on any device: y (B, ldy), src (n,) int32
-    -> (B, n). Sources outside [0, ldy) read 0, as in the kernel."""
-    ok = (src >= 0) & (src < y.shape[1])
-    out = y[:, torch.where(ok, src, 0).long()]
-    return out.masked_fill_(~ok, 0.0)
+def permute_columns_plain(y, src: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K5 on any device: y (B, ldy), or a list of
+    up to ``MAX_PARTS`` (B, ld_k) parts standing for their concatenation
+    along the columns, src (n,) int32 -> (B, n). Sources outside the lanes
+    of y read 0, as in the kernel. With parts, each part's lanes are
+    gathered from it in place."""
+    if isinstance(y, torch.Tensor):
+        ok = (src >= 0) & (src < y.shape[1])
+        out = y[:, torch.where(ok, src, 0).long()]
+        return out.masked_fill_(~ok, 0.0)
+    out = y[0].new_zeros((y[0].shape[0], src.numel()))
+    lo = 0
+    for part in y:
+        hit = (src >= lo) & (src < lo + part.shape[1])
+        out[:, hit] = part[:, (src[hit] - lo).long()]
+        lo += part.shape[1]
+    return out
 
 
-def permute_columns(y: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """K5: y (B, ldy) fp32, src (n,) int32 source lanes (-1: dead) ->
-    (B, n) fp32."""
-    if y.device.type == "cpu":
+def permute_columns(y, src: torch.Tensor) -> torch.Tensor:
+    """K5: y (B, ldy) fp32, or a list of up to ``MAX_PARTS`` (B, ld_k) fp32
+    parts read as their concatenation along the columns (never joined in
+    memory), src (n,) int32 source lanes (-1: dead) -> (B, n) fp32."""
+    parts = [y] if isinstance(y, torch.Tensor) else list(y)
+    if not 0 < len(parts) <= MAX_PARTS:
+        raise ValueError(f"permute_columns: {len(parts)} parts, want 1 to "
+                         f"{MAX_PARTS}")
+    if parts[0].device.type == "cpu":
         return permute_columns_plain(y, src)
-    if y.dtype != torch.float32 or y.ndim != 2 or src.dtype != torch.int32 \
-            or src.ndim != 1:
-        raise ValueError(f"permute_columns: y {y.dtype} {tuple(y.shape)}, "
-                         f"src {src.dtype} {tuple(src.shape)}")
-    dev = _build.require_cuda("permute_columns", y, src)
-    batch, n = y.shape[0], src.numel()
+    batch = parts[0].shape[0]
+    if any(p.dtype != torch.float32 or p.ndim != 2 or p.shape[0] != batch
+           for p in parts) or src.dtype != torch.int32 or src.ndim != 1:
+        shapes = [(p.dtype, tuple(p.shape)) for p in parts]
+        raise ValueError(f"permute_columns: y {shapes}, src {src.dtype} "
+                         f"{tuple(src.shape)}")
+    dev = _build.require_cuda("permute_columns", *parts, src)
+    n = src.numel()
     out = torch.empty((batch, n), dtype=torch.float32, device=dev)
+    ptrs = [p.data_ptr() for p in parts] + [None] * (MAX_PARTS - len(parts))
+    lds = [p.shape[1] for p in parts] + [0] * (MAX_PARTS - len(parts))
     rc = _build.lib().tps_permute_columns(
-        y.data_ptr(), src.data_ptr(), out.data_ptr(), batch, y.shape[1], n,
-        dev.index, _build.stream_of(y))
+        *ptrs, src.data_ptr(), out.data_ptr(), *lds, batch, n, dev.index,
+        _build.stream_of(parts[0]))
     _build.check(rc, "permute_columns")
     permute_columns.launches += 1
     return out

@@ -5,7 +5,10 @@
 
 ``y[b, cj[k]*128 + r] += sum_s vals[k, s, r] * x[b, ct[k]*128 + idx[k, s, r]]``
 over every chunk k of (8 slots x 128 lanes). The result is ``(B, n)`` in the
-pack's column order; ``RsellMatrix`` unpermutes a sorted pack with K5. The
+pack's column order or, given a sorted pack's ``Unpermute`` (output column
+p is the pack's column ``src[p]``), in the user's: the second kernel sums
+the pack's columns in pack order, as ever, and writes each to its place
+``dst[c]`` in the output, so a sorted ``RsellMatrix`` launches no K5. The
 TPU kernel's ``(B*8, N)`` output slab, its packed ``(cj << 16) | ct`` plan
 and its SMEM plan segments were TPU workarounds and are not ported; the
 16-bit id limit they imply is kept as a guard, so both packages refuse the
@@ -32,8 +35,7 @@ the same body: a run only says where a group's chunks end, which the items
 already know.
 
 ``work_plan`` is the earlier plan (runs of whole chunks, one plan for every
-batch), kept for the kernel's history (``bench.abba`` gives it to the
-earlier K4, K6 and K7).
+batch), kept for the kernel's history and its tests.
 
 ``rsell_spmm`` launches the CUDA kernel for CUDA tensors and uses
 ``rsell_spmm_plain`` only for CPU tensors.
@@ -41,11 +43,14 @@ earlier K4, K6 and K7).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from tpusparse_torch.kernels import _build, block_items
 from tpusparse_torch.kernels.dense import batch_tile
+from tpusparse_torch.kernels.permute import permute_columns_plain
 from tpusparse_torch.utils import round_up
 
 _LANES = 128
@@ -193,17 +198,6 @@ def rsell_plans(cj: np.ndarray, ct: np.ndarray, nb: int,
         host_plans(cj, ct, nb, _build.sm_count(device)), device)
 
 
-def device_work_plan(cj: np.ndarray, nb: int,
-                     device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """``work_plan`` with items sized so the partial kernel runs about
-    eight blocks per SM (``_build.split_work``), as int32 tensors on the
-    CUDA ``device``."""
-    per_item, _ = _build.split_work(max(len(cj), 1), 1, device)
-    items, gptr = work_plan(cj, nb, per_item)
-    return (torch.from_numpy(items).to(device),
-            torch.from_numpy(gptr).to(device))
-
-
 def rsell_spmm_plain(cj: torch.Tensor, ct: torch.Tensor, idx: torch.Tensor,
                      vals: torch.Tensor, x: torch.Tensor, *, n_padded: int,
                      n: int | None = None) -> torch.Tensor:
@@ -230,18 +224,57 @@ def rsell_spmm_plain(cj: torch.Tensor, ct: torch.Tensor, idx: torch.Tensor,
     return y.reshape(batch, n_padded)[:, :n].float().contiguous()
 
 
+class Unpermute(NamedTuple):
+    """A column-sorted pack's unpermute, done by K4's second kernel: output
+    column p is the pack's column ``src[p]`` (0 where ``src[p]`` is outside
+    the pack's columns). ``dst`` is its inverse over the pack's columns (-1
+    where no output reads one); ``complete`` says every output column has a
+    pack column (else the kernel's output starts from zeros)."""
+    src: torch.Tensor        # (n,) int32
+    dst: torch.Tensor        # (n_padded,) int32
+    complete: bool
+
+
+def unpermute_lanes(src: np.ndarray, n_padded: int,
+                    device) -> Unpermute:
+    """The ``Unpermute`` of source lanes ``src`` (numpy, once per pack).
+    Raises if two output columns read one pack column: the second kernel
+    writes each column once (``permute_columns`` gathers any ``src``)."""
+    src = np.asarray(src, dtype=np.int64)
+    live = (src >= 0) & (src < n_padded)
+    dst = np.full(n_padded, -1, np.int64)
+    dst[src[live]] = np.flatnonzero(live)
+    if np.count_nonzero(dst >= 0) != np.count_nonzero(live):
+        raise ValueError("unpermute_lanes: two output columns read one pack "
+                         "column")
+    return Unpermute(torch.from_numpy(src.astype(np.int32)).to(device),
+                     torch.from_numpy(dst.astype(np.int32)).to(device),
+                     bool(live.all()))
+
+
 def rsell_spmm(cj: torch.Tensor, ct: torch.Tensor, idx: torch.Tensor,
                vals: torch.Tensor, x: torch.Tensor, *, n_padded: int,
                n: int | None = None,
-               plan: dict[int, block_items.ItemPlan] | None = None
-               ) -> torch.Tensor:
+               plan: dict[int, block_items.ItemPlan] | None = None,
+               unpermute: Unpermute | None = None) -> torch.Tensor:
     """K4: cj, ct (nchunk,) int32, idx (nchunk, 8, 128) int8, vals
     (nchunk, 8, 128) fp32, x (B, m) fp32 (columns past m read as 0) ->
     (B, n) fp32, n <= n_padded (default n_padded). ``plan``: the
     ``rsell_plans`` of the pack, built here (with host copies of cj and
-    ct) when None."""
+    ct) when None. ``unpermute``: the output's column p is the pack's column
+    ``unpermute.src[p]`` (0 outside [0, n_padded)), done by K4's second
+    kernel (``n`` is then the length of ``src``)."""
+    if unpermute is not None and n is not None \
+            and n != unpermute.src.numel():
+        raise ValueError(f"rsell_spmm: n={n} with {unpermute.src.numel()} "
+                         f"output columns to unpermute")
     if x.device.type == "cpu":
-        return rsell_spmm_plain(cj, ct, idx, vals, x, n_padded=n_padded, n=n)
+        if unpermute is None:
+            return rsell_spmm_plain(cj, ct, idx, vals, x, n_padded=n_padded,
+                                    n=n)
+        return permute_columns_plain(
+            rsell_spmm_plain(cj, ct, idx, vals, x, n_padded=n_padded),
+            unpermute.src)
     check_plan_ids(round_up(x.shape[1], _LANES), n_padded)
     nchunk = vals.shape[0]
     if vals.shape != (nchunk, _SUB, _LANES) or idx.shape != vals.shape \
@@ -259,9 +292,14 @@ def rsell_spmm(cj: torch.Tensor, ct: torch.Tensor, idx: torch.Tensor,
     n = n_padded if n is None else n
     if n_padded % _LANES or not 0 <= n <= n_padded:
         raise ValueError(f"rsell_spmm: n={n}, n_padded={n_padded}")
+    if unpermute is not None and unpermute.dst.shape != (n_padded,):
+        raise ValueError(f"rsell_spmm: unpermute over "
+                         f"{tuple(unpermute.dst.shape)} pack columns, want "
+                         f"({n_padded},)")
     block_items.check_rows("rsell_spmm", nchunk, _SUB)
-    dev = _build.require_cuda("rsell_spmm", cj, ct, idx, vals, x,
-                              aligned=(idx, vals))
+    on = (cj, ct, idx, vals, x) + (() if unpermute is None
+                                   else (unpermute.dst,))
+    dev = _build.require_cuda("rsell_spmm", *on, aligned=(idx, vals))
     batch = x.shape[0]
     bt = batch_tile(batch)
     block_items.check_smem("rsell_spmm", rsell_smem_bytes(bt),
@@ -275,14 +313,23 @@ def rsell_spmm(cj: torch.Tensor, ct: torch.Tensor, idx: torch.Tensor,
         x = x.new_zeros((batch, 1))
     part = torch.empty((nitems, batch, _LANES), dtype=torch.float32,
                        device=dev)
-    y = torch.empty((batch, n), dtype=torch.float32, device=dev)
+    if unpermute is None:
+        y = torch.empty((batch, n), dtype=torch.float32, device=dev)
+        dst, ldy = None, 0
+    else:                           # the pack's n_padded columns, scattered
+        ldy = unpermute.src.numel()
+        y = (torch.empty if unpermute.complete else torch.zeros)(
+            (batch, ldy), dtype=torch.float32, device=dev)
+        dst, n = unpermute.dst.data_ptr(), n_padded
     rc = _build.lib().tps_rsell_spmm(
         items.data_ptr(), gptr.data_ptr(), ct.data_ptr(), idx.data_ptr(),
-        vals.data_ptr(), x.data_ptr(), part.data_ptr(), y.data_ptr(), nitems,
-        batch, x.shape[1], n, dev.index, _build.stream_of(x))
+        vals.data_ptr(), x.data_ptr(), part.data_ptr(), y.data_ptr(), dst,
+        nitems, batch, x.shape[1], n, ldy, dev.index, _build.stream_of(x))
     _build.check(rc, "rsell_spmm")
     rsell_spmm.launches += 1
+    rsell_spmm.unpermutes += unpermute is not None
     return y
 
 
 rsell_spmm.launches = 0
+rsell_spmm.unpermutes = 0     # calls whose second kernel did the unpermute

@@ -72,9 +72,15 @@ and then the router's banded and block-structured routes:
    is computed in float64 from the CSR through scipy, never densified;
 10. holds K6, K7 and K8 at B = 1 and 8 against their plain versions and the
     oracle, with the same timings and a library call each (cuBLAS for K6,
-    cuSPARSE CSR for K7 and K8; K8 takes one vector, so B = 8 is eight
-    launches), and runs a mixed-tier TCSR pack (the split charge set to 0)
-    and a BSR pack with block_m = 40 against the oracle;
+    cuSPARSE CSR for K7 and K8; K8 at B = 1 is one public ``DiaMatrix.spmv``
+    call; it takes one vector, so B = 8 is eight launches, stacked); K8
+    must give its plain version's bits, and the shifted torch form is timed
+    beside it; then K8 on HPCG's 27-point stencil on its 104^3 local grid
+    (``stencil_csr((104, 104, 104), points=27)``: sym, 14 stored
+    diagonals), one public call, held bit for bit to its plain version and
+    to the float64 CSR oracle and timed the same way (the ``by_workload``
+    of its row); and runs a mixed-tier TCSR pack (the split charge set to
+    0) and a BSR pack with block_m = 40 against the oracle;
 
 and then the training path, on the headline matrix as a trainable weight
 (BENCH.md §Training: 4096 x 4096, d = 0.5, fp32):
@@ -185,7 +191,7 @@ from tpusparse_torch.kernels.bell_spmv import bell_spmm, bell_spmm_plain
 from tpusparse_torch.kernels.bsell_spmv import bsell_spmm, bsell_spmm_plain
 from tpusparse_torch.kernels.bsr_spmv import bsr_spmm, bsr_spmm_plain
 from tpusparse_torch.kernels.dense import dense_cuda, dense_plain, dense_torch
-from tpusparse_torch.kernels.dia_spmv import dia_spmv, dia_spmv_plain
+from tpusparse_torch.kernels.dia_spmv import dia_spmv, dia_spmv_plain, fits
 from tpusparse_torch.kernels.permute import (permute_columns,
                                              permute_columns_plain)
 from tpusparse_torch.kernels.rsell_spmv import rsell_spmm, rsell_spmm_plain
@@ -230,6 +236,7 @@ FLOORS_HEAD = (0.5, 32)
 # unknown Laplacian (BENCH.md §Solver), and the batch each kernel's path runs
 BLOCKY = dict(m=4096, n=4096, block=128, keep_frac=0.3, fill=0.5, seed=9)
 STENCIL = (1024, 1024)
+STENCIL27 = (104, 104, 104)     # HPCG's local grid (hpcg.dat)
 PATH_BATCH = {**SKEW_BATCH, "bsell_spmv": 1, "bsr_spmv": 8, "dia_spmv": 1,
               "sell_grad": 8}
 # the training run: example 08's head width, its steps and learning rate;
@@ -878,22 +885,68 @@ def block_kernel_cases(a, f1: TcsrMatrix, f8: TcsrMatrix, dev):
 
 
 def banded_kernel_cases(csr, d: DiaMatrix, dev):
-    """K8 on the Laplacian's DIA pack. The kernel takes one vector, so a
-    batch of B is B launches (and B calls of the plain version)."""
+    """K8 on a DIA pack. B = 1 is one public ``DiaMatrix.spmv`` call, the
+    call users make (no copy around it); K8 takes one vector, so B = 8 is
+    eight launches (and eight calls of the plain version), stacked."""
     n = d.shape[1]
     at_csr = torch_csr_of_at(csr, dev)
 
-    def rows(fn):
+    def rows(fn, **kw):
         return lambda xt: torch.stack([fn(d.offsets, d.vals, v, sym=d.sym,
-                                          n=n) for v in xt])
+                                          n=n, **kw) for v in xt])
 
     def dia_case(xt, y_ref):
-        kern, plain = rows(dia_spmv), rows(dia_spmv_plain)
+        if xt.shape[0] == 1:
+            v = xt[0]
+            kern = lambda: d.spmv(v)[None]                     # noqa: E731
+            plain = lambda: dia_spmv_plain(                     # noqa: E731
+                d.offsets, d.vals, v, sym=d.sym, n=n)[None]
+        else:
+            kern = lambda: rows(dia_spmv, plan=d.plan)(xt)     # noqa: E731
+            plain = lambda: rows(dia_spmv_plain)(xt)            # noqa: E731
         nbytes = d.device_bytes() + 4 * (xt.numel() + xt.shape[0] * n)
-        return (lambda: kern(xt), lambda: plain(xt), cusparse(at_csr, xt),
-                nbytes, 2 * csr.nnz * xt.shape[0], y_ref)
+        return (kern, plain, cusparse(at_csr, xt), nbytes,
+                2 * csr.nnz * xt.shape[0], y_ref)
 
     return {"dia_spmv": dia_case}
+
+
+def check_dia(results: dict, d: DiaMatrix, x1, dev) -> None:
+    """K8 is bit-exact against its plain version (the same fp32 products
+    added in the same order); the shifted torch form's time on x1."""
+    for b, row in results["dia_spmv"]["by_batch"].items():
+        require(row["max_abs_err"] == 0.0,
+                f"dia_spmv B={b}: |kernel-plain| {row['max_abs_err']:.3e}, "
+                "want the same bits")
+    v = torch.from_numpy(x1).to(dev)
+    row = results["dia_spmv"]["by_batch"][1]
+    row["shifted_ms"] = device_time(lambda: d._shifted(v[None, :])[0],
+                                    name="shifted").seconds * 1e3
+    row["tile"], row["smem_bytes"] = d.plan.tile, d.plan.smem_bytes
+    print(f"dia_spmv: bits equal to the plain version; plan tile "
+          f"{d.plan.tile}, {len(d.plan.windows)} windows, "
+          f"{d.plan.smem_bytes} B; shifted torch form "
+          f"{row['shifted_ms'] * 1e3:.2f} us")
+
+
+def stencil27(dev) -> dict:
+    """K8 on HPCG's 27-point stencil on its 104^3 local grid (sym, 14
+    stored diagonals), one vector: one public call against the plain
+    version bit for bit and the float64 CSR oracle, timed beside its bound,
+    cuSPARSE and the shifted form."""
+    t0 = time.perf_counter()
+    csr = generators.stencil_csr(STENCIL27, points=27)
+    d = DiaMatrix.from_csr(csr, device=dev)
+    n = d.shape[1]
+    require(d.sym and len(d.offsets) == 14 and fits(d.offsets, d.sym, n),
+            f"27-point stencil packed as {d!r}")
+    print(f"-- K8 on the 27-point stencil {STENCIL27}: {d!r}, pack + upload "
+          f"{time.perf_counter() - t0:.1f} s")
+    x1 = generators.random_sparse_vector(n, 0.5, 0)
+    res = check_kernels(banded_kernel_cases(csr, d, dev), csr_oracle(csr),
+                        (x1[None, :],), dev)
+    check_dia(res, d, x1, dev)
+    return res["dia_spmv"]["by_batch"][1]
 
 
 def check_block_extras(a, x8, dev) -> None:
@@ -1560,6 +1613,8 @@ def main() -> int:
     banded_results = check_kernels(banded_kernel_cases(csr, d, dev),
                                    csr_oracle(csr), (x1_d[None, :], x8_d),
                                    dev)
+    check_dia(banded_results, d, x1_d, dev)
+    dia27 = stencil27(dev)
     check_block_extras(a_b, x8_b, dev)
 
     csr_a = CsrMatrix.from_dense(a)
@@ -1595,6 +1650,8 @@ def main() -> int:
                 registry_blocks[row["name"]]["by_batch"].items()}}
     for row in kernels:
         row["launches_all_paths"] = TOTALS[row["name"]]
+        if row["name"] == "dia_spmv":
+            row["by_workload"] = {"stencil27-104": {"1": dia27}}
         if row["name"] == "awsp_spmv":      # the sweep's live-1/4 points
             row["live_quarter"] = {str(b): sweep["by_point"][f"live=0.25,B={b}"]
                                    for b in BATCHES}

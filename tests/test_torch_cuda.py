@@ -35,7 +35,11 @@ kernel a call, summed across its cluster in distributed shared memory) is
 held at every cluster size, with lda % 4 != 0 and A off 16-byte
 alignment, through static, device and explicit plans; K4 (two kernels a
 call) with x off 4 columns and off 16-byte alignment; both to the same
-bits on two calls.
+bits on two calls. K8 (one kernel a ``DiaMatrix.spmv`` call, its windows
+staged from the matrix's plan) gives its plain version's bits on every
+banded shape, with n % 4 != 0, a strided vals view, an offset past any
+tile, 32 diagonals, negative offsets only and n = 1024, at every tile and
+with windows left in global memory.
 """
 
 import functools
@@ -329,8 +333,8 @@ def test_fused_reduce_on_two_streams(cuda):
 
 def test_one_kernel_per_call(cuda):
     """torch.profiler sees exactly one CUDA kernel per K2, K11, K12, K9 and
-    K3 call (K9 sums its cluster's slices in the kernel, K3 its parts), one
-    for the device plan, two per K4 call (its items, then the group sum)
+    K3 call (K9 sums its cluster's slices in the kernel, K3 its parts) and
+    per ``DiaMatrix.spmv`` call (K8), one for the device plan, two per K4 call (its items, then the group sum)
     and two per sorted RSELL call (the sum writes the user's column order);
     the plain versions are not called here."""
     a, x, _ = _workload("full", 8)
@@ -349,6 +353,9 @@ def test_one_kernel_per_call(cuda):
                                                           seed=1)).to(cuda)
     assert rs.unpermute is not None
     binned = BinnedSellMatrix.from_dense(skew, device=cuda)
+    dd = DiaMatrix.from_csr(generators.stencil_csr((1024, 1024)), device=cuda)
+    xd = torch.from_numpy(generators.random_sparse_vector(
+        1 << 20, 0.5, seed=2)).to(cuda)
     calls = {"awsp": (1, lambda: awsp_spmm(wp, wk, w.idx, w.vals, xt, g=8,
                                            n=4096)),
              # K1 (and its reduce) a bucket, then K5: no copy between
@@ -361,7 +368,8 @@ def test_one_kernel_per_call(cuda):
                                            block_m=g.block_m, n=4096)),
              "asp": (1, lambda: asp_spmm(plan, k, h.a_pad, xt, n=4096)),
              "rsell": (2, lambda: rsell_spmm(r.cj, r.ct, r.idx, r.vals, xt,
-                                             n_padded=4096, plan=r._work))}
+                                             n_padded=4096, plan=r._work)),
+             "dia": (1, lambda: dd.spmv(xd))}
     for name, (per_call, call) in calls.items():
         call()                               # counters allocated, warm
         torch.cuda.synchronize()
@@ -1119,6 +1127,105 @@ def test_dia_kernel(cuda, name, batch):
     xb = generators.random_sparse_batch(batch, n, 0.5, seed=11)
     yb = f.spmm(torch.from_numpy(xb).to(cuda))        # the shifted form
     _close(yb, np.stack([_oracle(c, v) for v in xb]), 1e-3)
+
+
+# K8's further shapes: n % 4 != 0 (27-point), an offset past any tile,
+# 32 diagonals, negative offsets only, n = 1024 exactly (1-D, 3-point), and
+# a sym pack with no main diagonal (term 0's row also has a mirror term)
+BANDED_MORE = {"odd_27": ((11, 11, 9), 27), "far": ((5, 5000), None),
+               "n1024": ((1024,), None)}
+
+
+@functools.cache
+def _banded_more(name):
+    if name in BANDED_MORE:
+        dims, points = BANDED_MORE[name]
+        return generators.stencil_csr(dims, points=points)
+    rng = np.random.default_rng(17)
+    n, offs = {"diag32": (4096, rng.choice(np.arange(-3000, 3000), 32,
+                                           replace=False)),
+               "negative_only": (2048, (-700, -3, -1)),
+               "sym_no_main": (2048, (3, 40))}[name]
+    ii, jj = np.indices((n, n))
+    a = rng.uniform(-1, 1, (n, n)) * np.isin(ii - jj, offs)
+    if name == "sym_no_main":              # sym, no main diagonal
+        a = a + a.T
+    return CsrMatrix.from_dense(a.astype(np.float32))
+
+
+@pytest.mark.parametrize("name", ["stencil2d", "stencil3d_27", "odd_n",
+                                  "asym", "full", "odd_27", "far", "diag32",
+                                  "negative_only", "n1024", "sym_no_main"])
+def test_dia_kernel_bits(cuda, name):
+    """K8 gives ``dia_spmv_plain``'s bits (the same products, added in the
+    same order) with the matrix's plan, at every tile, with windows left
+    in global memory (the budgets of 16, 48 and 1000 blocks an SM: the
+    last stages none), and on a
+    strided vals view (row stride n + 12: the 16-byte copies where n
+    allows, n + 13: the scalar body)."""
+    from tpusparse_torch.kernels.dia_spmv import dia_plan, vec_body
+    shapes = [(1024, 8), (1024, 4), (2048, 4), (2048, 2), (4096, 2)]
+    c = _banded(name) if name in BANDED or name == "asym" \
+        else _banded_more(name)
+    f = DiaMatrix.from_csr(c, device=cuda)
+    n = f.shape[1]
+    assert fits(f.offsets, f.sym, n)
+    assert name != "far" or max(f.offsets) > max(t for t, _ in shapes)
+    assert name != "diag32" or len(f.offsets) == 32
+    assert name != "negative_only" or max(f.offsets) < 0
+    assert name != "sym_no_main" or (f.sym and f.offsets == (3, 40))
+    x = generators.random_sparse_vector(n, 0.5, seed=21)
+    xt = torch.from_numpy(x).to(cuda)
+    want = dia_spmv_plain(f.offsets, f.vals, xt, sym=f.sym, n=n)
+    plans = [f.plan] + [dia_plan(f.offsets, f.sym, t, b) for t, b in shapes]
+    plans += [dia_plan(f.offsets, f.sym, 1024, b) for b in (16, 48, 1000)]
+    views = [f.vals]
+    for pad in (12, 13):
+        big = torch.zeros((len(f.offsets), n + pad), device=cuda)
+        big[:, :n] = f.vals
+        views.append(big[:, :n])
+    assert vec_body(views[2], xt, n) is False
+    for v in views:
+        for p in plans:
+            y = dia_spmv(f.offsets, v, xt, sym=f.sym, n=n, plan=p)
+            torch.cuda.synchronize()
+            assert torch.equal(y, want), (p.tile, p.smem_bytes, v.stride())
+    _close(want, _oracle(c, x), 1e-3)
+
+
+def test_dia_public_call_one_launch(cuda):
+    """``DiaMatrix.spmv`` launches K8 once a call, with no host sync, on
+    the plan the matrix built once."""
+    c = _banded("full")
+    f = DiaMatrix.from_csr(c, device=cuda)
+    xs = [torch.from_numpy(generators.random_sparse_vector(
+        f.shape[0], 0.5, seed=30 + i)).to(cuda) for i in range(3)]
+    f.spmv(xs[0])
+    plan = f.plan
+    torch.cuda.synchronize()
+    before = dia_spmv.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ys = [f.spmv(x) for x in xs]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert dia_spmv.launches == before + 3 and f.plan is plan
+    for x, y in zip(xs, ys):
+        assert torch.equal(y, dia_spmv_plain(f.offsets, f.vals, x,
+                                             sym=f.sym, n=f.shape[1]))
+
+
+def test_sass_k8_copies(cuda):
+    """K8 stages its windows by cp.async (LDGSTS): 16 bytes a copy in its
+    16-byte body (LDGSTS.E.BYPASS.128), 4 in its scalar body."""
+    from tpusparse_torch.kernels import _build
+    sass = _sass_by_function(_build.build())
+    dia = {k: v for k, v in sass.items() if "dia_tile_kernel" in k}
+    assert len(dia) == 2, sorted(sass)
+    for name, text in dia.items():
+        assert "LDGSTS" in text, name
+        assert ("LDGSTS.E.BYPASS.128" in text) == ("ILb1E" in name), name
 
 
 def test_block_and_banded_public_paths_launch_the_kernels(cuda):

@@ -18,8 +18,8 @@ called through the interface they had before their redesign: K3
 its reduce kernel, and its device plan in torch ops
 (``device_group_plan_plain``); K4 (``rsell_spmv.cu``) with the pack's
 per-batch-tile plans and no source lanes (the output in the pack's column
-order); K5 (``permute.cu``) on one joined array. The new kernels are the
-package's own.
+order); K5 (``permute.cu``) on one joined array; K8 (``dia_spmv.cu``) with
+the offsets as its plan. The new kernels are the package's own.
 
 Points: K1 on the headline workload (4096^2, d = 0.5, seed 0) at B = 1 and
 8 and at the six floors points (``bench.report``: 4096^2, d in {0.1, 0.5},
@@ -52,7 +52,17 @@ through ``RsellMatrix.spmm`` (the parent: K4 then K5; the new: K4 with the
 unpermute in its second kernel) beside K4 in the pack's column order, and
 on binned SELL (the skew matrix and the headline workload; the parent: K1
 a bucket, ``torch.cat``, K5; the new: K1 a bucket, K5 on the buckets in
-place), at B = 1 and 8. ``--points`` picks kernels (default K3,K5).
+place), at B = 1 and 8; K8 at two single-vector points, fp32, x ~50%
+nonzero (seed 0): ``laplace2d-1M`` (``stencil_csr((1024, 1024))``, the
+router's banded path: n = 1,048,576, sym, offsets (0, 1, 1024)) and
+``stencil27-104`` (HPCG's 27-point stencil on its 104^3 local grid,
+``stencil_csr((104, 104, 104), points=27)``: n = 1,124,864, sym, 14 stored
+diagonals), each two ways: the public ``DiaMatrix.spmv`` call (the parent:
+its earlier wrapper, which copied the offsets into a ctypes array every
+call) and the bare kernel (both C entries called with everything made
+beforehand), beside cuSPARSE CSR and the shifted torch form
+(``DiaMatrix._shifted``, the counterpart of the JAX package's XLA path).
+``--points`` picks kernels (default K3,K5).
 
 At each point it checks parent and new against each other (atol 1e-4),
 then times A, B, B, A with ``bench.runner``'s ``device_time`` (median of
@@ -65,8 +75,9 @@ flush; the new one's also kernel by kernel). Where a point knows the bytes
 its function must move it prints the bound (bytes / the card's published
 HBM rate) and the new call's share of it. It then counts, with
 ``cuobjdump -sass``, the tensor-core (HMMA), asynchronous-copy (LDGSTS,
-UBLKCP, UTMALDG), mbarrier (SYNCS), cluster-barrier (UCGABAR) and
-shared-atomic instructions of each kernel of both libraries. It prints a
+UBLKCP, UTMALDG), mbarrier (SYNCS), cluster-barrier (UCGABAR),
+shared-atomic and 16-byte copy, load and store (LDGSTS128, LDG128,
+LDS128, STG128) instructions of each kernel of both libraries. It prints a
 Markdown table headed by the card's name and power limit, and writes every
 number as JSON to FILE. Each ``--variant DIR`` (a tree with the current C
 interface, for instance a copy with one phase of a kernel cut out) joins
@@ -97,6 +108,7 @@ from tpusparse_torch.formats.awsp import AwspMatrix
 from tpusparse_torch.formats.bell import BellMatrix
 from tpusparse_torch.formats.binned import BinnedSellMatrix
 from tpusparse_torch.formats.bsr import BsrMatrix
+from tpusparse_torch.formats.dia import DiaMatrix
 from tpusparse_torch.formats.rsell import RsellMatrix
 from tpusparse_torch.formats.sell import SellMatrix
 from tpusparse_torch.formats.tcsr import TcsrMatrix
@@ -109,6 +121,7 @@ from tpusparse_torch.kernels.bell_spmv import bell_spmm
 from tpusparse_torch.kernels.bsell_spmv import bsell_spmm
 from tpusparse_torch.kernels.bsr_spmv import bsr_spmm
 from tpusparse_torch.kernels.dense import batch_tile, dense_cuda, dense_torch
+from tpusparse_torch.kernels.dia_spmv import vec_body
 from tpusparse_torch.kernels.rsell_spmv import rsell_spmm
 from tpusparse_torch.kernels.sell_mxu_spmm import sell_mxu_spmm
 from tpusparse_torch.kernels.sell_spmv import sell_spmm
@@ -120,7 +133,8 @@ SOURCES = {"K1": ("sell_spmv.cu",), "K12": ("bell_spmv.cu",),
            "K2": ("dense.cu",), "K11": ("sell_mxu_spmm.cu",),
            "K6": ("bsr_spmv.cu",), "K7": ("bsell_spmv.cu",),
            "K4": ("rsell_spmv.cu",), "K9": ("asp_spmv.cu",),
-           "K3": ("awsp_spmv.cu",), "K5": ("permute.cu", "rsell_spmv.cu")}
+           "K3": ("awsp_spmv.cu",), "K5": ("permute.cu", "rsell_spmv.cu"),
+           "K8": ("dia_spmv.cu",)}
 # The C interface of the kernels this PR redesigned, as the parent has it;
 # every other kernel's is the package's own.
 PARENT_SIGNATURES = {
@@ -133,12 +147,15 @@ PARENT_SIGNATURES = {
     # y, src, out, batch, ldy, n, device, stream
     "K5": {"tps_permute_columns": [_P] * 3 + [_I] * 4 + [_P],
            "tps_rsell_spmm": [_P] * 8 + [_I] * 5 + [_P]},
+    # offsets (host int32), vals, x, y, k, sym, n, ldv, device, stream
+    "K8": {"tps_dia_spmv": [_P] * 4 + [_I] * 5 + [_P]},
 }
 ENTRIES = {"K1": "tps_sell_spmm", "K12": "tps_bell_spmm",
            "K2": "tps_dense_spmm", "K11": "tps_sell_mxu_spmm",
            "K6": "tps_bsr_spmm", "K7": "tps_bsell_spmm",
            "K4": "tps_rsell_spmm", "K9": "tps_asp_spmm",
-           "K3": "tps_awsp_spmm", "K5": "tps_permute_columns"}
+           "K3": "tps_awsp_spmm", "K5": "tps_permute_columns",
+           "K8": "tps_dia_spmv"}
 # the router's skew workload (chip_smoke.py's skew path)
 SKEW = dict(m=8192, n=8192, density=0.15, distribution="powerlaw", seed=0)
 # the JAX package's AWSP live-fraction sweep (tpusparse/bench/dynamic.py)
@@ -147,8 +164,16 @@ SWEEP = dict(m=4096, n=4096, d=0.5, g=2, seed=11,
 # the wait before each timed call: binned SELL's calls take ~200 us of host
 # time to enqueue (a K1 wrapper a bucket, then K5), twice the default's
 SPIN = 1_000_000
+# the K8 points: name -> (stencil_csr's dims, points)
+BANDED = {"laplace2d-1M": ((1024, 1024), None),
+          "stencil27-104": ((104, 104, 104), 27)}
 SASS_NAMES = (r"sell_ring|sell_partial|bell_kernel|bell_partial|dense|mxu"
-              r"|bsr|bsell|rsell|asp|awsp|group_plan|permute|reduce")
+              r"|bsr|bsell|rsell|asp|awsp|group_plan|permute|reduce|dia")
+# SASS opcodes counted, by key
+SASS_OPS = {"LDGSTS": "LDGSTS", "UBLKCP": "UBLKCP", "UTMALDG": "UTMALDG",
+            "SYNCS": "SYNCS", "UCGABAR": "UCGABAR", "ATOMS": "ATOMS",
+            "LDGSTS128": "LDGSTS.E.BYPASS.128", "LDG128": "LDG.E.128",
+            "LDS128": "LDS.128", "STG128": "STG.E.128"}
 
 
 class Point(NamedTuple):
@@ -268,6 +293,66 @@ def parent_permute(so, y, src):
     _check(so.tps_permute_columns(
         y.data_ptr(), src.data_ptr(), out.data_ptr(), y.shape[0], y.shape[1],
         src.numel(), y.device.index, _build.stream_of(y)), "parent K5")
+    return out
+
+
+def parent_dia(so, d: DiaMatrix, x, offs=None, y=None):
+    """The earlier K8: the offsets copied into a ctypes array and y made
+    every call, as its wrapper did (given ``offs`` and ``y``: the bare
+    kernel)."""
+    n = d.shape[1]
+    k = len(d.offsets)
+    if offs is None:
+        offs = (ctypes.c_int32 * k)(*d.offsets)
+    if y is None:
+        y = torch.empty(n, dtype=torch.float32, device=x.device)
+    _check(so.tps_dia_spmv(
+        ctypes.addressof(offs), d.vals.data_ptr(), x.data_ptr(), y.data_ptr(),
+        k, int(d.sym), n, d.vals.stride(0), x.device.index,
+        _build.stream_of(x)), "parent K8")
+    return y
+
+
+def new_dia(d: DiaMatrix, x, y):
+    """The package's K8 through its C entry, its plan and y made
+    beforehand."""
+    p, n = d.plan, d.shape[1]
+    _build.check(_build.lib().tps_dia_spmv(
+        ctypes.addressof(p.words), d.vals.data_ptr(), x.data_ptr(),
+        y.data_ptr(), len(p.terms), len(p.windows), p.tile, p.smem_bytes,
+        int(vec_body(d.vals, x, n)), n, d.vals.stride(0), x.device.index,
+        _build.stream_of(x)), "K8")
+    return y
+
+
+def dia_points(dev, parent):
+    """The K8 points: each banded operator by its public call and by the
+    bare kernel, beside cuSPARSE and the shifted torch form."""
+    out = []
+    for name, (dims, pts) in BANDED.items():
+        csr = generators.stencil_csr(dims, points=pts)
+        d = DiaMatrix.from_csr(csr, device=dev)
+        n = d.shape[1]
+        at_csr = torch.sparse_csr_tensor(
+            torch.from_numpy(csr.row_ptr.astype(np.int64)),
+            torch.from_numpy(csr.col_idx.astype(np.int64)),
+            torch.from_numpy(np.asarray(csr.values, np.float32)),
+            size=(n, n)).to(dev)
+        x = torch.from_numpy(generators.random_sparse_vector(n, 0.5, 0)) \
+            .to(dev)
+        nbytes = d.device_bytes() + 8 * n
+        offs = (ctypes.c_int32 * len(d.offsets))(*d.offsets)
+        y_old, y_new = torch.empty_like(x), torch.empty_like(x)
+        lib = (lambda at_csr=at_csr, x=x: at_csr @ x)
+        yard = {"shifted": lambda d=d, x=x: d._shifted(x[None, :])[0]}
+        out.append(Point(f"K8 {name} public",
+                         lambda d=d, x=x: parent_dia(parent, d, x),
+                         lambda d=d, x=x: d.spmv(x), lib, yard, nbytes))
+        out.append(Point(f"K8 {name} kernel",
+                         lambda d=d, x=x, o=offs, y=y_old: parent_dia(
+                             parent, d, x, o, y),
+                         lambda d=d, x=x, y=y_new: new_dia(d, x, y), lib, {},
+                         nbytes))
     return out
 
 
@@ -540,6 +625,8 @@ def points(dev, parent, kernels) -> list[Point]:
         out += awsp_points(dev, parent, a, at_csr, heads)
     if "K5" in kernels:
         out += permute_points(dev, parent, a, at_csr, heads)
+    if "K8" in kernels:
+        out += dia_points(dev, parent)
     return out
 
 
@@ -553,13 +640,11 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
             name = line.split("Function :")[1].strip()
             name = name if re.search(SASS_NAMES, name) else None
             if name:
-                out[name] = {"HMMA": 0, "HMMA_TF32": 0, "LDGSTS": 0,
-                             "UBLKCP": 0, "UTMALDG": 0, "SYNCS": 0,
-                             "UCGABAR": 0, "ATOMS": 0}
+                out[name] = {"HMMA": 0, "HMMA_TF32": 0,
+                             **{key: 0 for key in SASS_OPS}}
         elif name:
-            for key in ("LDGSTS", "UBLKCP", "UTMALDG", "SYNCS", "UCGABAR",
-                        "ATOMS"):
-                out[name][key] += key in line
+            for key, op in SASS_OPS.items():
+                out[name][key] += op in line
             if "HMMA" in line:
                 out[name]["HMMA"] += 1
                 out[name]["HMMA_TF32"] += "TF32" in line

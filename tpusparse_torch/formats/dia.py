@@ -11,7 +11,8 @@ A bitwise-symmetric square operator stores only its ``d >= 0`` diagonals
 row at a shifted position. Packing runs on the host in numpy.
 
 ``DiaMatrix.spmv`` runs K8 where the JAX package runs its kernel (square,
-``fits``, not ``xla_only``). Everywhere else, and for ``spmm`` always, it
+``fits``, not ``xla_only``), with K8's plan built once per matrix
+(``DiaMatrix.plan``). Everywhere else, and for ``spmm`` always, it
 runs the shifted elementwise form below: the counterpart of the plain XLA
 code the JAX package runs there outside any Pallas kernel. That form is
 part of the format, not K8's plain version (``dia_spmv_plain``).
@@ -19,6 +20,7 @@ part of the format, not K8's plain version (``dia_spmv_plain``).
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
@@ -27,7 +29,8 @@ import torch.nn.functional as F
 
 from tpusparse_torch.formats.csr import CsrMatrix
 from tpusparse_torch.formats.sell import as_input
-from tpusparse_torch.kernels.dia_spmv import dia_spmv, fits
+from tpusparse_torch.kernels.dia_spmv import (DiaPlan, dia_plan, dia_spmv,
+                                              fits)
 from tpusparse_torch.utils import resolve_device
 
 
@@ -107,6 +110,11 @@ class DiaMatrix:
     @property
     def device(self) -> torch.device:
         return self.vals.device
+
+    @functools.cached_property
+    def plan(self) -> DiaPlan:
+        """K8's plan (its tile, terms and staged windows), built once."""
+        return dia_plan(self.offsets, self.sym)
 
     def __repr__(self) -> str:
         return (f"DiaMatrix(shape={self.shape}, nnz={self.nnz}, "
@@ -196,7 +204,7 @@ class DiaMatrix:
         m, n = self.shape
         if m == n and not self.xla_only and fits(self.offsets, self.sym, n):
             return dia_spmv(self.offsets, self.vals, x.contiguous(),
-                            sym=self.sym, n=n)
+                            sym=self.sym, n=n, plan=self.plan)
         return self._shifted(x[None, :])[0]
 
     def spmm(self, x) -> torch.Tensor:

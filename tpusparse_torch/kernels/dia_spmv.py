@@ -13,13 +13,26 @@ they are not an input here; its block sizing (``_pick_rows``) is a VMEM
 budget. ``halo_rows`` and ``fits`` are kept verbatim, so that ``DiaMatrix``
 picks the kernel exactly where the JAX package does.
 
-``dia_spmv`` launches the CUDA kernel for CUDA tensors and uses
-``dia_spmv_plain`` only for CPU tensors.
+The TPU kernel loads a block's x slab and halo once and forms every shifted
+window from it. The CUDA kernel stages windows in shared memory instead:
+``dia_plan`` (built once per matrix, ``DiaMatrix.plan``) lists the terms in
+the TPU kernel's order and, for x and for each vals row, groups the shifts
+at which the terms read it into windows of nearby shifts; a block of T
+outputs copies each window once and forms its terms from it
+(``csrc/dia_spmv.cu`` has the design). T is the first of ``TILES`` whose
+windows fit ``budget(BLOCKS)``; windows that still do not fit stay in
+global memory, the least used first.
+
+``dia_spmv`` launches the CUDA kernel for CUDA tensors (its 16-byte copies
+where ``vec_body`` holds, else its scalar body) and uses ``dia_spmv_plain``
+only for CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -29,6 +42,21 @@ from tpusparse_torch.utils import round_up
 _LANES = 128
 _SUB = 8
 _MAX_OFFSETS = 32          # the TPU kernel unrolls them; past this, no kernel
+# csrc/dia_spmv.cu: 256 threads, 4 outputs a thread a pass; a warp takes
+# 128 consecutive outputs, so a tile is a multiple of 128
+PASS = 128
+# The tiles dia_plan tries, in order: the first whose windows all fit two
+# blocks an SM is taken, else the last, with its least used windows left in
+# global memory. 1024 measured fastest at both K8 points, and a smaller
+# tile that stages every window beat 1024 with terms read from global
+# memory (scripts/k8_study.py, PERF.md).
+TILES = (1024, 512, 256, 128)
+BLOCKS = 2
+
+
+def budget(blocks: int) -> int:
+    """The staged bytes a block may hold for ``blocks`` blocks an SM."""
+    return _build.SM_SMEM // blocks - 1024
 
 
 def halo_rows(offsets, sym: bool) -> int:
@@ -48,6 +76,121 @@ def fits(offsets, sym: bool, n: int) -> bool:
     if not 0 < k <= _MAX_OFFSETS:
         return False
     return halo_rows(offsets, sym) <= 512 and n >= _LANES * _SUB
+
+
+class DiaPlan(NamedTuple):
+    """K8's launch plan for one operator: ``tile`` positions a block;
+    ``terms`` (e, s, row, xi, vi) in summation order (x read at p + e, vals
+    row ``row`` at p + s; xi, vi the shared-memory index of the tile's
+    first position's read, -1 where that window stays in global memory);
+    ``windows`` (src, lo, len, off), the staged ones (src -1 is x, else a
+    vals row; ``lo`` relative to the tile's base; all multiples of 4
+    floats); ``smem_bytes`` their shared memory; ``words`` all of it as the
+    C entry's int32 array."""
+    tile: int
+    terms: tuple
+    windows: tuple
+    smem_bytes: int
+    words: object
+
+
+def plan_terms(offsets, sym: bool) -> list[tuple[int, int, int]]:
+    """(e, s, row) of each term in the TPU kernel's order: diagonal i
+    (x at p + d_i, row i at p), then its mirror when ``sym`` and d_i > 0
+    (x and row i at p - d_i)."""
+    out = []
+    for i, d in enumerate(offsets):
+        out.append((d, 0, i))
+        if sym and d > 0:
+            out.append((-d, -d, i))
+    return out
+
+
+def shift_groups(shifts, tile: int) -> list[tuple[int, int]]:
+    """(lo, hi) of the sorted distinct ``shifts`` cut where neighbours lie
+    more than ``tile`` apart: one window [lo, tile + hi) then costs no more
+    than two."""
+    out = []
+    for v in sorted(set(shifts)):
+        if out and v - out[-1][1] <= tile:
+            out[-1] = (out[-1][0], v)
+        else:
+            out.append((v, v))
+    return out
+
+
+def _windows(terms, tile: int) -> list[dict]:
+    """Every window the terms read, x's first: its source, first shift
+    ``lo`` (rounded down to 4), length (covering [lo, tile + hi), rounded
+    up to 4) and the terms it serves."""
+    sources = [(-1, [t[0] for t in terms])]
+    rows = sorted({t[2] for t in terms})
+    sources += [(r, [t[1] for t in terms if t[2] == r]) for r in rows]
+    out = []
+    for src, shifts in sources:
+        for lo, hi in shift_groups(shifts, tile):
+            lo4 = lo - lo % 4
+            out.append(dict(src=src, lo=lo4, len=round_up(tile + hi - lo4, 4),
+                            shifts=(lo, hi),
+                            uses=sum(lo <= v <= hi for v in shifts)))
+    return out
+
+
+def dia_plan(offsets, sym: bool, tile: int | None = None,
+             blocks: int = BLOCKS) -> DiaPlan:
+    """K8's plan: the tile (None: the first of ``TILES`` whose windows all
+    fit ``budget(blocks)``, else its last), the terms, and the windows
+    staged within the budget; where they do not all fit, the least used
+    stay in global memory (then the longest)."""
+    if not 0 < len(offsets) <= _MAX_OFFSETS:
+        raise ValueError(f"dia_plan: {len(offsets)} diagonals, the kernel "
+                         f"takes 1 to {_MAX_OFFSETS}")
+    terms = plan_terms(offsets, sym)
+    room = budget(blocks)
+    if tile is None:
+        tile = next((t for t in TILES if 4 * sum(
+            w["len"] for w in _windows(terms, t)) <= room), TILES[-1])
+    if tile <= 0 or tile % PASS:
+        raise ValueError(f"dia_plan: tile {tile} is no multiple of {PASS}")
+    wins = _windows(terms, tile)
+    total = sum(w["len"] for w in wins)
+    for w in sorted(wins, key=lambda w: (w["uses"], -w["len"])):
+        if 4 * total <= room:
+            break
+        w["off"] = None
+        total -= w["len"]
+    off = 0
+    for w in wins:
+        if w.get("off", 0) is not None:
+            w["off"] = off
+            off += w["len"]
+
+    def index(src, v):
+        for w in wins:
+            if w["src"] == src and w["shifts"][0] <= v <= w["shifts"][1]:
+                return -1 if w["off"] is None else w["off"] + v - w["lo"]
+        raise AssertionError("a term with no window")
+
+    plan_t = tuple((e, s_, r, index(-1, e), index(r, s_))
+                   for e, s_, r in terms)
+    staged = tuple((w["src"], w["lo"], w["len"], w["off"]) for w in wins
+                   if w["off"] is not None)
+    flat = [v for t in plan_t for v in t] + [v for w in staged for v in w]
+    words = (ctypes.c_int32 * len(flat))(*flat)
+    return DiaPlan(tile, plan_t, staged, 4 * off, words)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_of(offsets: tuple, sym: bool) -> DiaPlan:
+    """``dia_plan`` for callers that pass none, built once per operator."""
+    return dia_plan(offsets, sym)
+
+
+def vec_body(vals: torch.Tensor, x: torch.Tensor, n: int) -> bool:
+    """True where K8's 16-byte copies apply: n and the vals row stride
+    multiples of 4, vals and x 16-byte aligned; else its scalar body."""
+    return (n % 4 == 0 and vals.stride(0) % 4 == 0
+            and vals.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
 
 
 def dia_spmv_plain(offsets, vals: torch.Tensor, x: torch.Tensor, *,
@@ -71,9 +214,11 @@ def dia_spmv_plain(offsets, vals: torch.Tensor, x: torch.Tensor, *,
 
 
 def dia_spmv(offsets, vals: torch.Tensor, x: torch.Tensor, *, sym: bool,
-             n: int) -> torch.Tensor:
-    """K8: offsets (k static ints, 0 < k <= 32), vals (k, >= n) fp32, x (n,)
-    fp32 -> y (n,) fp32."""
+             n: int, plan: DiaPlan | None = None) -> torch.Tensor:
+    """K8: offsets (k static ints, 0 < k <= 32), vals (k, >= n) fp32 (its
+    rows may be a strided view, row stride >= n), x (n,) fp32 -> y (n,)
+    fp32. ``plan``: ``dia_plan(offsets, sym)``; when None, the one built at
+    the first call for these offsets (a ``DiaMatrix`` keeps its own)."""
     if x.device.type == "cpu":
         return dia_spmv_plain(offsets, vals, x, sym=sym, n=n)
     k = len(offsets)
@@ -81,18 +226,25 @@ def dia_spmv(offsets, vals: torch.Tensor, x: torch.Tensor, *, sym: bool,
         raise ValueError(f"dia_spmv: {k} diagonals, the kernel takes 1 to "
                          f"{_MAX_OFFSETS}")
     if vals.dtype != torch.float32 or vals.ndim != 2 or vals.shape[0] != k \
-            or vals.shape[1] < n:
-        raise ValueError(f"dia_spmv: vals must be fp32 ({k}, >= {n}), got "
-                         f"{vals.dtype} {tuple(vals.shape)}")
+            or vals.shape[1] < n or vals.stride(1) != 1 \
+            or vals.stride(0) < n:
+        raise ValueError(f"dia_spmv: vals must be fp32 ({k}, >= {n}) with "
+                         f"unit column stride, got {vals.dtype} "
+                         f"{tuple(vals.shape)} strides {vals.stride()}")
     if x.dtype != torch.float32 or x.shape != (n,):
         raise ValueError(f"dia_spmv: x must be fp32 ({n},), got {x.dtype} "
                          f"{tuple(x.shape)}")
-    dev = _build.require_cuda("dia_spmv", vals, x)
-    offs = (ctypes.c_int32 * k)(*(int(d) for d in offsets))
+    dev = _build.require_cuda("dia_spmv", x)
+    if vals.device != dev:
+        raise ValueError(f"dia_spmv: vals on {vals.device}, x on {dev}")
+    if plan is None:
+        plan = _plan_of(tuple(int(d) for d in offsets), bool(sym))
     y = torch.empty(n, dtype=torch.float32, device=dev)
     rc = _build.lib().tps_dia_spmv(
-        ctypes.addressof(offs), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
-        k, int(bool(sym)), n, vals.shape[1], dev.index, _build.stream_of(x))
+        ctypes.addressof(plan.words), vals.data_ptr(), x.data_ptr(),
+        y.data_ptr(), len(plan.terms), len(plan.windows), plan.tile,
+        plan.smem_bytes, int(vec_body(vals, x, n)), n, vals.stride(0),
+        dev.index, _build.stream_of(x))
     _build.check(rc, "dia_spmv")
     dia_spmv.launches += 1
     return y

@@ -109,10 +109,11 @@ and then the JAX package's full bench registry and its floors study:
     ``sell_binned_cuda``, ``bsr_cuda``, ``tcsr_cuda``, ``rsell_cuda``,
     ``asp_cuda``) at the headline workload, B = 1 and 8, through
     ``SpmvTester`` against the oracle, each timed (its artifact check on
-    ``format_bytes``: BELL's ``read_bytes``), every launch counter set to 0
-    just before each entry and read just after: ``bell_cuda`` must launch
-    K12, ``sell_binned_cuda`` K1 and K5, ``bsr_cuda`` K6, ``tcsr_cuda`` K7
-    and/or K6, ``rsell_cuda`` K4, ``asp_cuda`` K9, and ``ell_torch`` none;
+    ``format_bytes``: BELL's and RSELL's ``read_bytes``), every launch
+    counter set to 0 just before each entry and read just after:
+    ``bell_cuda`` must launch K12, ``sell_binned_cuda`` K1 and K5,
+    ``bsr_cuda`` K6, ``tcsr_cuda`` K7 and/or K6, ``rsell_cuda`` K4,
+    ``asp_cuda`` K9, and ``ell_torch`` none;
     then K6 on ``bsr_cuda``'s pack (block_m 512), K7 on ``tcsr_cuda``'s
     (its SELL tier), K4 on ``rsell_cuda``'s and K9 on ``asp_cuda``'s (its
     full plan), where 48 of their 49 counted launches land, against their
@@ -144,7 +145,34 @@ and then the JAX package's full bench registry and its floors study:
     and K1's launches counted over the timed study alone. K11 is one
     launch a call:
     bulk-copied tiles, a store scatter into shared memory, 3xTF32
-    ``mma.sync`` on the tensor cores and the fused split-K sum.
+    ``mma.sync`` on the tensor cores and the fused split-K sum;
+
+and then the solver user's path on the 1M-unknown Laplacian (BENCH.md
+§Solver and §AMG), reusing the banded path's DIA pack:
+
+16. (a) the native converters must have built on the card's host; the
+    AMG host setup is timed, and the level-0 prolongator's RSELL packs
+    with and without them (the same bits); (b) ``cg(d, b, tol=1e-5)`` on
+    K8 against CG over K8's plain version (the same iterations, iterates
+    within 1e-6), its float64 residual <= 1e-4, timed per iteration
+    beside K8's call and the iteration's byte bound, with the share of
+    the iteration outside kernels (``torch.profiler``); (c) Lanczos
+    bounds (``spectrum_bounds``, ncv 32) containing the closed-form
+    lmax within 1.05x, Chebyshev-preconditioned CG in fewer iterations
+    than plain CG, ``cg_multi`` on 4 right-hand sides against 4 single
+    solves, and BiCGStab and GMRES residuals falling; (d) the smoothed-
+    aggregation hierarchy with JAX's levels and formats (two DIA levels
+    on K8, two TCSR levels on K7/K6, RSELL carriers on K4, a dense
+    coarse level), its V-cycle's launches and time, an AMG-CG solve to a
+    float64 residual <= 1e-4, every pack of the hierarchy held against
+    its plain versions (the level-0 packs and the first TCSR level timed
+    beside cuSPARSE), and ``save``/``load``: on the card the same bits,
+    on the CPU a V-cycle within 1e-4; (e) a scrambled 1M-unknown chain
+    routed back to DIA by ``banded_after_rcm``, solved by CG in the
+    permuted space within 1e-4 of scipy's direct solve; (f) the port's
+    ``entry()`` against the float64 oracle and K1 against its plain
+    version. Its launches of K1, K4, K6, K7 and K8 join their rows'
+    ``launches_all_paths`` and ``by_workload["solver-laplace2d-1M"]``.
 
 Kernel against plain version: atol 1e-4 (the same products summed in
 another order); against the float64 oracle: atol 1e-3 (the repo's
@@ -161,6 +189,7 @@ exits with code 2 before doing anything.
 from __future__ import annotations
 
 import json
+import statistics
 import sys
 import time
 
@@ -385,7 +414,7 @@ def skew_kernel_cases(a, r: RsellMatrix, asp: AspMatrix, dev):
 
     def rsell_case(xt, y_ref):
         args = (r.cj, r.ct, r.idx, r.vals, xt)
-        nbytes = r.device_bytes() + 4 * (xt.numel() + xt.shape[0] * np_)
+        nbytes = r.read_bytes() + 4 * (xt.numel() + xt.shape[0] * np_)
         return (lambda: rsell_spmm(*args, n_padded=np_, plan=r._work),
                 lambda: rsell_spmm_plain(*args, n_padded=np_),
                 cusparse(at_csr, xt), nbytes, 2 * nnz * xt.shape[0],
@@ -1264,7 +1293,7 @@ def registry_block_cases(a, packs, dev):
 
     def rsell_case(xt, y_ref):
         args = (r.cj, r.ct, r.idx, r.vals, xt)
-        nbytes = r.device_bytes() + 4 * (xt.numel() + xt.shape[0] * np_)
+        nbytes = r.read_bytes() + 4 * (xt.numel() + xt.shape[0] * np_)
         want = y_ref
         if r.perm_src is not None:          # the pack's column order
             want = np.zeros((y_ref.shape[0], np_), np.float32)
@@ -1537,6 +1566,506 @@ def floors_study(dev) -> tuple[list[dict], dict]:
     return rows, row
 
 
+# -- phase 16: the solver path ------------------------------------------
+
+SOLVER_WRAPPERS = {"sell_spmv": sell_spmm, "rsell_spmv": rsell_spmm,
+                   "bsr_spmv": bsr_spmm, "bsell_spmv": bsell_spmm,
+                   "dia_spmv": dia_spmv}
+SOLVER_TOL = 1e-5
+# the JAX host setup's hierarchy of the 1024^2 Laplacian (default
+# arguments): level sizes and formats, and its operator complexity
+AMG_LEVELS = ((1048576, "DiaMatrix"), (175104, "DiaMatrix"),
+              (19537, "TcsrMatrix"), (2181, "TcsrMatrix"), (247, "dense"))
+AMG_OP_CX = "1.34"
+
+
+def timed_ms(fn):
+    """(result, device ms) of one call, bracketed by CUDA events."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def kernel_busy_ms(fn) -> tuple[float, float | None]:
+    """Host wall ms of ``fn()`` under ``torch.profiler`` (synchronized; the
+    profiler slows the host) and the ms its CUDA kernels took on the
+    device (None when the profiler recorded no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False))
+    return wall, (dev_us / 1e3 if dev_us > 0 else None)
+
+
+def solver_counts(phase: dict, fn):
+    """Run ``fn`` with every launch counter at 0, add its launches of the
+    solver path's kernels to the phase's and to TOTALS, return its
+    result and those launches."""
+    torch.cuda.synchronize()
+    zero_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = read_counts(SOLVER_WRAPPERS)
+    tally(counts)
+    for k, v in counts.items():
+        phase["launches"][k] += v
+    return out, counts
+
+
+def rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300))
+
+
+def residual64(sp, z, b) -> float:
+    """||b - A z|| / ||b|| in float64 (``sp`` is A, symmetric, scipy)."""
+    z = z.detach().double().cpu().numpy() if isinstance(z, torch.Tensor) \
+        else np.asarray(z, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.linalg.norm(b - sp @ z) / np.linalg.norm(b))
+
+
+def plain_spmv(pack, x):
+    """The plain versions of the kernels a solver-path pack launches, on
+    the same device tensors: K8 (DIA), K4 (RSELL), K7 + K6 (TCSR)."""
+    if isinstance(pack, DiaMatrix):
+        return dia_spmv_plain(pack.offsets, pack.vals, x, sym=pack.sym,
+                              n=pack.shape[1])
+    if isinstance(pack, RsellMatrix):
+        return rsell_spmm_plain(pack.cj, pack.ct, pack.idx, pack.vals,
+                                x[None], n_padded=pack.padded[1],
+                                n=pack.shape[1])[0]
+    if isinstance(pack, SellMatrix):
+        return sell_spmm_plain(pack.idx, pack.vals, x[None],
+                               n=pack.shape[1])[0]
+    n, y = pack.shape[1], None
+    if pack.vals.shape[0]:
+        y = bsell_spmm_plain(pack.s_bi, pack.s_bj, pack.idx, pack.vals,
+                             x[None], n_padded=pack.padded[1], n=n)[0]
+    if pack.bsr is not None:
+        b = pack.bsr
+        yd = bsr_spmm_plain(b.bi, b.bj, b.blocks, x[None],
+                            n_padded=b.padded[1], n=n)[0]
+        y = yd if y is None else y + yd
+    return torch.zeros(n, device=x.device) if y is None else y
+
+
+def pack_kernels(pack) -> tuple[str, ...]:
+    if isinstance(pack, DiaMatrix):
+        return ("dia_spmv",)
+    if isinstance(pack, RsellMatrix):
+        return ("rsell_spmv",)
+    if isinstance(pack, SellMatrix):
+        return ("sell_spmv",)
+    return (("bsell_spmv",) if pack.vals.shape[0] else ()) + \
+        (("bsr_spmv",) if pack.bsr is not None else ())
+
+
+def hold_pack(where: str, pack, sp, dev, seed: int, timed: bool) -> dict:
+    """A solver-path pack's public call (its kernels) against the plain
+    versions on the same vector and against float64 scipy (``sp`` is the
+    packed A, y = x @ A); with ``timed``, the kernel, plain version and
+    cuSPARSE (CSR of A.T) timed beside the bytes bound."""
+    m, n = pack.shape
+    x = torch.from_numpy(generators.random_sparse_vector(m, 0.5, seed)) \
+        .to(dev)
+    yk, yp = pack.spmv(x), plain_spmv(pack, x)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(yp.abs().max()))
+    e_plain = max_err(yk, yp)
+    e_ref = max_err(yk, sp.T @ x.double().cpu().numpy())
+    require(e_plain <= PLAIN_ATOL * scale and e_ref <= ATOL * scale,
+            f"{where}: |kernel-plain| {e_plain:.3e} or |kernel-oracle| "
+            f"{e_ref:.3e} above {PLAIN_ATOL}/{ATOL} x {scale:.3g}")
+    row = {"shape": [m, n], "max_abs_err": e_plain,
+           "max_abs_err_oracle": e_ref, "kernels": pack_kernels(pack)}
+    if timed:
+        at = sp.T.tocsr().astype(np.float32)
+        at_csr = torch.sparse_csr_tensor(
+            torch.from_numpy(at.indptr.astype(np.int64)),
+            torch.from_numpy(at.indices.astype(np.int64)),
+            torch.from_numpy(at.data), size=(n, m)).to(dev)
+        nbytes = format_bytes(pack) + 4 * (m + n)
+        bound = nbytes / (detect_hbm_gbps() * 1e9) * 1e3
+        row.update(
+            ms=device_time(lambda: pack.spmv(x)).seconds * 1e3,
+            plain_ms=device_time(lambda: plain_spmv(pack, x), warmup=1,
+                                 reps=5).seconds * 1e3,
+            library_ms=device_time(lambda: at_csr @ x).seconds * 1e3,
+            bound_ms=bound, bound_by="bytes", bytes=nbytes)
+        require(bound / row["ms"] <= ARTIFACT_SHARE,
+                f"{where}: roofline share {bound / row['ms']:.3f}")
+    print(f"   {where} {type(pack).__name__} {m}x{n}: max|k-plain|="
+          f"{e_plain:.3e} max|k-oracle|={e_ref:.3e}"
+          + (f" | {row['ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f}"
+             f" us | plain {row['plain_ms'] * 1e3:.2f} us | cuSPARSE "
+             f"{row['library_ms'] * 1e3:.2f} us" if timed else ""))
+    return row
+
+
+def solver_native(csr, phase: dict):
+    """16a: the native converters on the card's host, and the host setup
+    of the AMG hierarchy (whose aggregation runs through them)."""
+    from tpusparse_torch import native
+    from tpusparse_torch.amg import _aggregate, host_hierarchy
+    from tpusparse_torch.formats.rsell import rsell_pack_csr
+
+    require(native.available(),
+            f"native converters unavailable: {native.build_error()}")
+    t0 = time.perf_counter()
+    host = host_hierarchy(csr)
+    phase["amg_host_setup_s"] = time.perf_counter() - t0
+    h0 = host[0][0]
+    t0 = time.perf_counter()
+    agg, n_agg = _aggregate(h0.sp, 0.0, use_native=True)
+    t_agg = time.perf_counter() - t0
+    require(np.array_equal(agg, h0.agg) and n_agg == h0.n_agg,
+            "native aggregation differs from the hierarchy's")
+    packs = {}
+    for name, mat in (("P", h0.p), ("Pt", h0.p.T.tocsr())):
+        c = CsrMatrix.from_scipy(mat.astype(np.float32))
+        times = {}
+        for use in (True, False):
+            t0 = time.perf_counter()
+            pk = rsell_pack_csr(c, sort=False, use_native=use)
+            times["native" if use else "numpy"] = time.perf_counter() - t0
+            packs.setdefault(name, []).append(pk)
+        nat, ref = packs[name]
+        require(all(np.array_equal(nat[k], ref[k])
+                    for k in ("cj", "ct", "idx", "vals")),
+                f"RSELL {name}: native and numpy packs differ")
+        phase[f"rsell_pack_{name}_s"] = times
+    phase["aggregate_native_s"] = t_agg
+    print(f"-- solver path (phase 16) on the {STENCIL[0]}x{STENCIL[1]} "
+          f"Laplacian, n {csr.shape[0]}")
+    print(f"16a native converters built: {native.available()}; AMG host "
+          f"setup {phase['amg_host_setup_s']:.2f} s; level-0 aggregation "
+          f"(native) {t_agg:.3f} s (the numpy loop is not run at 1M); "
+          f"RSELL P pack native {phase['rsell_pack_P_s']['native']:.2f} s / "
+          f"numpy {phase['rsell_pack_P_s']['numpy']:.2f} s, Pt native "
+          f"{phase['rsell_pack_Pt_s']['native']:.2f} s / numpy "
+          f"{phase['rsell_pack_Pt_s']['numpy']:.2f} s (bits equal)")
+    return host
+
+
+def solver_cg(csr, sp, d: DiaMatrix, bt, b, phase: dict) -> int:
+    """16b: CG on K8, against CG over K8's plain version; timed."""
+    from tpusparse_torch.solve import cg
+
+    n = d.shape[1]
+    (z1, i1), c = solver_counts(phase, lambda: cg(d, bt, tol=SOLVER_TOL))
+    require(c["dia_spmv"] > 0, "cg: no K8 launch")
+
+    def plain(v):
+        return dia_spmv_plain(d.offsets, d.vals, v, sym=d.sym, n=n)
+
+    z2, i2 = cg(plain, bt, tol=SOLVER_TOL)
+    iters = i1["iters"]
+    dz = rel(z1.cpu(), z2.cpu())
+    res = residual64(sp, z1, b)
+    require(iters == i2["iters"] and dz <= 1e-6,
+            f"cg on K8: {iters} iterations, on the plain version "
+            f"{i2['iters']}; iterates {dz:.3e} apart")
+    require(res <= 1e-4 and float(i1["resnorm"]) <= SOLVER_TOL
+            * float(torch.linalg.norm(bt)) * 1.01,
+            f"cg: float64 relative residual {res:.3e}")
+    _, ms = timed_ms(lambda: cg(d, bt, tol=SOLVER_TOL))
+    k8_ms = device_time(lambda: d.spmv(bt)).seconds * 1e3
+    vec = 4 * n
+    spmv_bytes = d.device_bytes() + 2 * vec
+    # the loop body's vector passes: fused (x += a p, r -= a Ap, p = z + b p
+    # at 3 vectors each, p.Ap 2, r.z and the test's r.r 1 each) and as the
+    # torch ops run (each op reading its inputs once, writing its output)
+    fused = spmv_bytes + 13 * vec
+    written = spmv_bytes + 25 * vec
+    hbm = detect_hbm_gbps() * 1e9
+    # kernel time of 50 iterations under the profiler, against the same
+    # iterations' event time without it (the profiler slows the host)
+    _, busy = kernel_busy_ms(lambda: cg(d, bt, tol=0.0, maxiter=50))
+    _, wall = timed_ms(lambda: cg(d, bt, tol=0.0, maxiter=50))
+    us = ms * 1e3 / iters
+    phase["cg"] = {
+        "iters": iters, "iters_plain": i2["iters"], "iterate_rel": dz,
+        "residual64": res, "ms": ms, "us_per_iter": us, "k8_us": k8_ms * 1e3,
+        "bound_us_fused": fused / hbm * 1e6, "bytes_fused": fused,
+        "bound_us_as_written": written / hbm * 1e6,
+        "bytes_as_written": written,
+        "iters50_ms": wall, "iters50_kernel_ms": busy,
+        "outside_kernels_share": None if busy is None else 1 - busy / wall}
+    print(f"16b cg(K8): {iters} iterations (plain version {i2['iters']}, "
+          f"iterates {dz:.2e} apart), float64 residual {res:.3e}; "
+          f"{ms:.2f} ms, {us:.2f} us/iteration; K8 call {k8_ms * 1e3:.2f} "
+          f"us; iteration bound {fused / hbm * 1e6:.2f} us fused "
+          f"({fused / 1e6:.2f} MB), {written / hbm * 1e6:.2f} us as written "
+          f"({written / 1e6:.2f} MB); share outside kernels "
+          + ("not measured" if busy is None else
+             f"{1 - busy / wall:.3f} (50 iterations: {wall:.2f} ms, "
+             f"{busy:.2f} ms of it in kernels)"))
+    return iters
+
+
+def solver_krylov(sp, d: DiaMatrix, bt, b, plain_iters: int, phase: dict):
+    """16c: Lanczos bounds, Chebyshev CG, batched CG, BiCGStab, GMRES."""
+    from tpusparse_torch.eig import spectrum_bounds
+    from tpusparse_torch.solve import (bicgstab, cg, cg_multi,
+                                       chebyshev_preconditioner, gmres)
+
+    side = STENCIL[0]
+    lam_max = 1e-3 + 4.0 + 4.0 * np.cos(np.pi / side)
+    (lmin, lmax), _ = solver_counts(phase,
+                                    lambda: spectrum_bounds(d, ncv=32))
+    lmin, lmax = float(lmin), float(lmax)
+    require(lam_max <= lmax <= 1.05 * lam_max,
+            f"Lanczos lmax {lmax} vs the true {lam_max}")
+    (zc, ic), _ = solver_counts(phase, lambda: cg(
+        d, bt, tol=SOLVER_TOL, m_inv=chebyshev_preconditioner(d, lmax)))
+    res_c = residual64(sp, zc, b)
+    require(ic["iters"] < plain_iters and res_c <= 1e-4,
+            f"Chebyshev CG: {ic['iters']} iterations (plain {plain_iters}), "
+            f"residual {res_c:.3e}")
+    _, cheb_ms = timed_ms(lambda: cg(
+        d, bt, tol=SOLVER_TOL, m_inv=chebyshev_preconditioner(d, lmax)))
+    bm = torch.from_numpy(generators.random_sparse_batch(
+        4, d.shape[0], 0.5, 1)).to(bt.device)
+    (zm, im), _ = solver_counts(phase,
+                                lambda: cg_multi(d, bm, tol=SOLVER_TOL))
+    singles = [cg(d, bm[i], tol=SOLVER_TOL) for i in range(4)]
+    worst = max(rel(zm[i].cpu(), z.cpu()) for i, (z, _) in enumerate(singles))
+    most = max(info["iters"] for _, info in singles)
+    require(abs(im["iters"] - most) <= 1 and worst <= 1e-4,
+            f"cg_multi: {im['iters']} iterations vs {most}, rows {worst:.3e} "
+            "from the single solves")
+    bn = float(torch.linalg.norm(bt))
+    (_, ib), _ = solver_counts(phase,
+                               lambda: bicgstab(d, bt, tol=SOLVER_TOL,
+                                                maxiter=20))
+    (_, ig), _ = solver_counts(phase,
+                               lambda: gmres(d, bt, tol=SOLVER_TOL,
+                                             restart=30, maxiter=30))
+    rb, rg = float(ib["resnorm"]) / bn, float(ig["resnorm"]) / bn
+    require(rb < 1.0 and rg < 1.0,
+            f"bicgstab / gmres residuals did not fall: {rb:.3e}, {rg:.3e}")
+    phase["krylov"] = {
+        "lanczos_lmax": lmax, "lanczos_lmin": lmin, "true_lmax": lam_max,
+        "lmax_over_true": lmax / lam_max, "cheb_iters": ic["iters"],
+        "cheb_residual64": res_c, "cheb_ms": cheb_ms,
+        "cg_multi_iters": im["iters"], "cg_single_max_iters": most,
+        "cg_multi_row_rel": worst, "bicgstab_20_rel_resnorm": rb,
+        "gmres_30_rel_resnorm": rg}
+    print(f"16c Lanczos (ncv 32): lmax {lmax:.6f} = {lmax / lam_max:.4f} x "
+          f"the true {lam_max:.6f}, lmin {lmin:.3e}; Chebyshev CG "
+          f"{ic['iters']} iterations (plain {plain_iters}), residual "
+          f"{res_c:.3e}, {cheb_ms:.2f} ms; cg_multi x4 {im['iters']} "
+          f"iterations (single max {most}, rows {worst:.2e} apart); "
+          f"bicgstab 20 its {rb:.3e}, gmres(30) {rg:.3e} of ||b||")
+
+
+def solver_amg(host, sp, bt, b, dev, phase: dict) -> dict:
+    """16d: the AMG hierarchy on the card: its levels, V-cycle and solve,
+    each level's packs against the plain versions, save and load."""
+    import tempfile
+
+    from tpusparse_torch.amg import SmoothedAggregationAMG, from_host
+
+    t0 = time.perf_counter()
+    amg = from_host(*host, device=dev)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    got = tuple((lv.n, lv.fmt) for lv in amg.levels)
+    op_cx = f"{amg.operator_complexity:.2f}"
+    print(f"16d {amg!r}")
+    require(got == AMG_LEVELS and op_cx == AMG_OP_CX,
+            f"AMG levels {got}, op_cx {op_cx}")
+    require(all(isinstance(lv.p, RsellMatrix) and isinstance(lv.pt, RsellMatrix)
+                for lv in amg.levels[:-1]), "carriers are not RSELL")
+    _, per_cycle = solver_counts(phase, lambda: amg(bt))
+    require(per_cycle["dia_spmv"] > 0 and per_cycle["rsell_spmv"] > 0
+            and per_cycle["bsell_spmv"] + per_cycle["bsr_spmv"] > 0,
+            f"V-cycle launches {per_cycle}")
+    cyc_ms = statistics.median(timed_ms(lambda: amg(bt))[1]
+                               for _ in range(20))
+    (z, info), _ = solver_counts(phase,
+                                 lambda: amg.solve(bt, tol=SOLVER_TOL))
+    res = residual64(sp, z, b)
+    require(res <= 1e-4 and float(info["resnorm"]) <= SOLVER_TOL
+            * float(torch.linalg.norm(bt)) * 1.01,
+            f"AMG solve: residual {res:.3e}, resnorm {float(info['resnorm'])}")
+    solve_ms = statistics.median(
+        timed_ms(lambda: amg.solve(bt, tol=SOLVER_TOL))[1] for _ in range(3))
+    _, busy = kernel_busy_ms(lambda: amg(bt))
+    # every pack of the path against its plain versions, timed; a V-cycle
+    # applies each level's A 6 times (2 smoothers of degree 2, 2
+    # residuals), its P and Pt once
+    held = {}
+    levels_h = host[0]
+    for li, lv in enumerate(amg.levels[:-1]):
+        h = levels_h[li]
+        for name, pack, mat in (("A", lv.a, h.sp), ("P", lv.p, h.p),
+                                ("Pt", lv.pt, h.p.T.tocsr())):
+            if isinstance(pack, torch.Tensor):      # a dense level: no kernel
+                continue
+            row = hold_pack(f"L{li}.{name}", pack, mat, dev, seed=li,
+                            timed=True)
+            row["per_vcycle"] = 2 * amg.degree + 2 if name == "A" else 1
+            held[f"L{li}.{name}"] = row
+    gap = {k: sum(r["per_vcycle"] * (r["ms"] - r["bound_ms"]) * 1e3
+                  for r in held.values() if k in r["kernels"])
+           for k in SOLVER_WRAPPERS}
+    # save, then load on the card (the same bits) and on the CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/amg.npz"
+        t0 = time.perf_counter()
+        amg.save(path)
+        save_s = time.perf_counter() - t0
+        back = SmoothedAggregationAMG.load(path, device=dev)
+        z2, info2 = back.solve(bt, tol=SOLVER_TOL)
+        require(info2["iters"] == info["iters"] and torch.equal(z2, z),
+                "the loaded hierarchy does not solve bit for bit")
+        cpu = SmoothedAggregationAMG.load(path, device="cpu")
+        t0 = time.perf_counter()
+        vc = cpu(bt.cpu())
+        cpu_s = time.perf_counter() - t0
+        dv = rel(vc, amg(bt).cpu())
+    require(dv <= 1e-4, f"CPU V-cycle {dv:.3e} from the card's")
+    phase["amg"] = {
+        "repr": repr(amg), "host_setup_s": phase["amg_host_setup_s"],
+        "pack_upload_s": pack_s, "vcycle_us": cyc_ms * 1e3,
+        "vcycle_launches": per_cycle, "solve_iters": info["iters"],
+        "solve_ms": solve_ms, "solve_residual64": res,
+        "vcycle_kernel_us": None if busy is None else busy * 1e3,
+        "outside_kernels_share": None if busy is None else 1 - busy / cyc_ms,
+        "save_s": save_s, "cpu_vcycle_s": cpu_s, "cpu_vcycle_rel": dv,
+        "vcycle_gap_us": gap, "packs": held}
+    print(f"   host setup {phase['amg_host_setup_s']:.2f} s, pack + upload "
+          f"{pack_s:.2f} s; V-cycle {cyc_ms * 1e3:.1f} us (median of 20), "
+          f"launches "
+          f"{json.dumps(per_cycle)}; solve {info['iters']} iterations, "
+          f"{solve_ms:.2f} ms, float64 residual {res:.3e}; V-cycle share "
+          "outside kernels " + ("not measured" if busy is None else
+                                f"{1 - busy / cyc_ms:.3f} ({busy * 1e3:.1f} "
+                                "us in kernels)")
+          + f"; saved in {save_s:.1f} s, reloaded on the card: the same "
+          f"bits; on the CPU V-cycle {cpu_s:.1f} s, "
+          f"{dv:.2e} from the card's")
+    return held
+
+
+def solver_rcm(dev, phase: dict) -> None:
+    """16e: a scrambled 1M-unknown chain, routed back to DIA by RCM, solved
+    by CG in the permuted space against scipy's direct solve."""
+    from scipy.sparse.linalg import spsolve
+
+    from tpusparse_torch.reorder import (banded_after_rcm, permute_vector,
+                                         unpermute_vector)
+    from tpusparse_torch.solve import cg
+
+    n = STENCIL[0] * STENCIL[1]
+    chain = generators.stencil_csr((n,)).to_scipy().tocsr()
+    q = np.random.default_rng(0).permutation(n)
+    scrambled = chain[q][:, q].tocsr()
+    t0 = time.perf_counter()
+    got = banded_after_rcm(CsrMatrix.from_scipy(scrambled))
+    rcm_s = time.perf_counter() - t0
+    require(got is not None, "banded_after_rcm declined the scrambled chain")
+    csr_b, p = got
+    fmt = auto_format(csr_b)                             # device=None: GPU
+    require(isinstance(fmt, DiaMatrix), f"RCM result packed as {fmt!r}")
+    b = generators.random_sparse_vector(n, 0.5, 2)
+    bt = torch.from_numpy(b).to(dev)
+    (zb, info), _ = solver_counts(
+        phase, lambda: cg(fmt, permute_vector(bt, p), tol=SOLVER_TOL))
+    z = unpermute_vector(zb, p)
+    t0 = time.perf_counter()
+    z64 = spsolve(scrambled.astype(np.float64).tocsc(), b.astype(np.float64))
+    direct_s = time.perf_counter() - t0
+    dz = rel(z.cpu(), z64)
+    require(dz <= 1e-4, f"RCM-space CG {dz:.3e} from the direct solve")
+    phase["rcm"] = {"rcm_s": rcm_s, "format": repr(fmt),
+                    "cg_iters": info["iters"], "rel_to_direct": dz,
+                    "direct_s": direct_s}
+    print(f"16e RCM on the scrambled chain: {rcm_s:.2f} s, {fmt!r}; CG in "
+          f"the permuted space {info['iters']} iterations, {dz:.2e} from "
+          f"scipy's direct solve ({direct_s:.2f} s)")
+
+
+def solver_entry(dev, phase: dict) -> dict:
+    """16f: the port's entry point on the card against the float64
+    oracle, and K1 on its pack against the plain version, timed."""
+    from scipy import sparse as ssp
+
+    from tpusparse_torch.entry import DENSITY, M, N, SEED, entry
+
+    fn, args = entry()
+    y, _ = solver_counts(phase, lambda: fn(*args))
+    a = generators.random_sparse_matrix(M, N, density=DENSITY, seed=SEED)
+    e = max_err(y, reference.sgemv_cpu(args[1].cpu().numpy(), a))
+    require(y.shape == (N,) and e <= ATOL, f"entry: |y-oracle| {e:.3e}")
+    print(f"16f entry(): y {tuple(y.shape)}, |y-oracle| {e:.3e}")
+    return hold_pack("entry", args[0], ssp.csr_matrix(a.astype(np.float64)),
+                     dev, seed=SEED, timed=True)
+
+
+def solver_path(csr, d: DiaMatrix, dev) -> dict:
+    """Phase 16: the solver user's path on the 1M-unknown Laplacian."""
+    t_phase = time.perf_counter()
+    phase = {"launches": dict.fromkeys(SOLVER_WRAPPERS, 0)}
+    sp = csr.to_scipy().tocsr().astype(np.float64)
+    b = generators.random_sparse_vector(csr.shape[0], 0.5, 0)
+    bt = torch.from_numpy(b).to(dev)
+    host = solver_native(csr, phase)
+    plain_iters = solver_cg(csr, sp, d, bt, b, phase)
+    solver_krylov(sp, d, bt, b, plain_iters, phase)
+    held = solver_amg(host, sp, bt, b, dev, phase)
+    solver_rcm(dev, phase)
+    held["entry"] = solver_entry(dev, phase)
+    c = phase["launches"]
+    for name in ("sell_spmv", "rsell_spmv", "dia_spmv"):
+        require(c[name] > 0, f"{name}: no launch on the solver path")
+    require(c["bsell_spmv"] + c["bsr_spmv"] > 0,
+            "TCSR: no K6 or K7 launch on the solver path")
+    phase["held"] = held
+    phase["seconds"] = time.perf_counter() - t_phase
+    print("launches on the solver path:", json.dumps(c),
+          f"; phase 16 took {phase['seconds']:.1f} s")
+    print(json.dumps({"solver_path": {k: v for k, v in phase.items()
+                                      if k != "held"}}, default=str))
+    return phase
+
+
+def solver_workload(phase: dict, name: str) -> dict:
+    """A kernel's ``by_workload`` entry for the solver path: its launches
+    there, its timed pack (if any) and the worst error over its packs."""
+    rows = [r for r in phase["held"].values() if name in r["kernels"]]
+    out = {"launches": phase["launches"][name],
+           "max_abs_err": max((r["max_abs_err"] for r in rows), default=None),
+           "packs_held": len(rows)}
+    timed = [r for r in rows if "ms" in r]
+    if timed:           # the largest of the kernel's shapes on this path
+        big = max(timed, key=lambda r: r["bytes"])
+        out.update({k: big[k] for k in ("shape", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")})
+    if name == "dia_spmv":
+        out["cg"] = phase["cg"]
+    if name in ("rsell_spmv", "dia_spmv", "bsell_spmv", "bsr_spmv"):
+        out["vcycle_launches"] = phase["amg"]["vcycle_launches"][name]
+        out["vcycle_gap_us"] = phase["amg"]["vcycle_gap_us"][name]
+    return out
+
+
 def kernel_rows(results, launches, batch_of) -> list[dict]:
     rows = []
     for name, res in results.items():
@@ -1634,6 +2163,7 @@ def main() -> int:
     check_bell_block_sizes(dev)
     binned_k5 = check_binned(a_s, x1_s, x8_s, dev)
     _, k11_row = floors_study(dev)
+    solver = solver_path(csr, d, dev)
 
     kernels = kernel_rows(results, launches, {}) + \
         kernel_rows(skew_results, skew_launches, PATH_BATCH) + \
@@ -1651,7 +2181,10 @@ def main() -> int:
     for row in kernels:
         row["launches_all_paths"] = TOTALS[row["name"]]
         if row["name"] == "dia_spmv":
-            row["by_workload"] = {"stencil27-104": {"1": dia27}}
+            row.setdefault("by_workload", {})["stencil27-104"] = {"1": dia27}
+        if row["name"] in SOLVER_WRAPPERS:
+            row.setdefault("by_workload", {})["solver-laplace2d-1M"] = \
+                solver_workload(solver, row["name"])
         if row["name"] == "awsp_spmv":      # the sweep's live-1/4 points
             row["live_quarter"] = {str(b): sweep["by_point"][f"live=0.25,B={b}"]
                                    for b in BATCHES}

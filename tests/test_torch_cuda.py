@@ -1440,3 +1440,84 @@ def test_full_registry_on_the_card(cuda, name):
     e = next(e for e in registry(full=True) if e["name"] == name)
     _close(e["run"](e["prepare"](a, cuda), torch.from_numpy(x).to(cuda)),
            y_ref, 1e-3)
+
+
+# -- the solver path: CG on K8, AMG across devices, packs saved on the card
+
+
+def test_cg_on_k8_matches_its_plain_version(cuda):
+    from tpusparse_torch.solve import cg
+
+    csr = generators.stencil_csr((128, 128))
+    d = DiaMatrix.from_csr(csr, device=cuda)
+    n = d.shape[1]
+    assert fits(d.offsets, d.sym, n)
+    b = torch.from_numpy(generators.random_sparse_vector(n, 0.5, 0)).to(cuda)
+    k0 = dia_spmv.launches
+    z1, i1 = cg(d, b, tol=1e-5)
+    assert dia_spmv.launches - k0 == i1["iters"] + 1
+    z2, i2 = cg(lambda v: dia_spmv_plain(d.offsets, d.vals, v, sym=d.sym,
+                                         n=n), b, tol=1e-5)
+    assert i1["iters"] == i2["iters"] and torch.equal(z1, z2)
+    sp = csr.to_scipy().astype(np.float64)
+    res = np.linalg.norm(sp @ z1.double().cpu().numpy() - b.cpu().numpy())
+    assert res <= 1e-4 * np.linalg.norm(b.cpu().numpy())
+
+
+def test_amg_vcycle_card_against_cpu(cuda, tmp_path):
+    from tpusparse_torch.amg import SmoothedAggregationAMG, smoothed_aggregation
+
+    csr = generators.stencil_csr((256, 256))
+    amg = smoothed_aggregation(csr, device=cuda)
+    assert [type(lv.p).__name__ for lv in amg.levels[:2]] == \
+        ["RsellMatrix", "RsellMatrix"]
+    amg.save(str(tmp_path / "amg.npz"))
+    cpu = SmoothedAggregationAMG.load(str(tmp_path / "amg.npz"),
+                                      device="cpu")
+    back = SmoothedAggregationAMG.load(str(tmp_path / "amg.npz"),
+                                       device=cuda)
+    r = torch.from_numpy(generators.random_sparse_vector(
+        csr.shape[0], 0.5, 1)).to(cuda)
+    k4, k8 = rsell_spmm.launches, dia_spmv.launches
+    v = amg(r)
+    assert rsell_spmm.launches > k4 and dia_spmv.launches > k8
+    vc = cpu(r.cpu())
+    err = torch.linalg.norm(v.cpu().double() - vc.double())
+    assert float(err) <= 1e-4 * float(torch.linalg.norm(vc.double()))
+    assert torch.equal(back(r), v)
+    z, info = amg.solve(r, tol=1e-5)
+    sp = csr.to_scipy().astype(np.float64)
+    res = np.linalg.norm(sp @ z.double().cpu().numpy() - r.cpu().numpy())
+    assert info["iters"] <= 12
+    assert res <= 1e-4 * float(torch.linalg.norm(r.double()))
+
+
+@pytest.mark.parametrize("kind", ["sell", "rsell_sorted", "tcsr", "dia",
+                                  "bell", "binned", "asp"])
+def test_io_round_trip_on_the_card(cuda, tmp_path, kind):
+    from tpusparse_torch.formats import io
+
+    a = generators.random_sparse_matrix(512, 384, density=0.15, seed=2,
+                                        distribution="powerlaw")
+    band = np.ascontiguousarray(np.tril(np.triu(a[:384, :384], -3), 3))
+    make = {"sell": lambda: SellMatrix.from_dense(a, device=cuda),
+            "rsell_sorted": lambda: RsellMatrix.from_dense(a, device=cuda),
+            "tcsr": lambda: TcsrMatrix.from_dense(a, device=cuda),
+            "dia": lambda: DiaMatrix.from_dense(band, device=cuda),
+            "bell": lambda: BellMatrix.from_dense(a, block_m=256,
+                                                  device=cuda),
+            "binned": lambda: BinnedSellMatrix.from_dense(a, device=cuda),
+            "asp": lambda: AspMatrix.from_dense(a, block_n=128,
+                                                device=cuda)}
+    f = make[kind]()
+    path = str(tmp_path / f"{kind}.npz")
+    io.save(path, f)
+    back = io.load(path)                              # device=None: the card
+    assert back.device.type == "cuda"
+    _, aux0, dt0, arr0 = io.encode(f)
+    _, aux1, dt1, arr1 = io.encode(back)
+    assert (aux0, dt0) == (aux1, dt1)
+    assert all(x.tobytes() == y.tobytes() for x, y in zip(arr0, arr1))
+    m = f.shape[0]
+    x = torch.from_numpy(generators.random_sparse_vector(m, 0.5, 3)).to(cuda)
+    assert torch.equal(back.spmv(x), f.spmv(x))

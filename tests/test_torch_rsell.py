@@ -142,6 +142,20 @@ def test_matrix_matches_jax_metadata_and_dense():
     assert "RsellMatrix" in repr(t)
 
 
+@pytest.mark.parametrize("name", ["powerlaw", "unsorted", "flat"])
+def test_read_bytes_counts_live_slots(name):
+    """A product's byte bound reads the live slots and the chunk map, not
+    the zero pads of each 8 x 128 chunk."""
+    from tpusparse_torch.bench.roofline import format_bytes
+
+    a = _matrix(name)
+    t = RsellMatrix.from_dense(a, device="cpu")
+    assert t.nnz == int((a != 0).sum())
+    assert format_bytes(t) == t.read_bytes() == \
+        t.nnz * 5 + t.cj.numel() * 8
+    assert t.read_bytes() < t.device_bytes()
+
+
 @pytest.mark.parametrize("seed,most", [(0, 3), (1, 20), (2, 9)])
 def test_run_align_matches_jax_and_refuses_unsorted(seed, most):
     rng = np.random.default_rng(seed)

@@ -31,7 +31,8 @@ NEW_MODULES = ("formats.bsr", "formats.tcsr", "formats.dia",
                "autodiff", "nn", "prune", "graph", "kernels.sell_grad",
                "formats.ell", "formats.bell", "formats.binned",
                "kernels.bell_spmv", "kernels.sell_mxu_spmm", "bench.report",
-               "bench.profile")
+               "bench.profile", "native", "formats.io", "entry", "reorder",
+               "solve", "eig", "amg")
 JAX_TWIN = {"dense_torch": "dense_xla", "dense_cuda": "dense_pallas",
             "sell_cuda": "sell_pallas", "awsp_cuda": "awsp_pallas"}
 FULL_TWIN = {"ell_torch": "ell_xla", "bell_cuda": "bell_pallas",

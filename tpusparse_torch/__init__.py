@@ -3,7 +3,9 @@
 ``Y = X @ A`` SpMV/SpMM over SELL, AWSP, RSELL, ASP, BSR, TCSR, DIA, ELL,
 BELL and binned SELL packs, picked by ``auto_format`` or by hand, and
 sparse-weight training (``linear_map``, ``trainable_linear``,
-``nn.SparseLinear``) with the pruning and graph on-ramps, with kernels
+``nn.SparseLinear``) with the pruning and graph on-ramps, and the solver
+path (``solve``, ``eig``, ``amg``, ``reorder``, pack persistence in
+``formats.io`` and the native host converters in ``native``), with kernels
 written by hand for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first
 use. Entry
 points run on the GPU unless the caller passes ``device="cpu"``, which runs

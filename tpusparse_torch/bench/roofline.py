@@ -53,7 +53,8 @@ def card_info() -> dict[str, Any]:
 def format_bytes(fmt: Any) -> int:
     """Total device bytes a kernel must stream to read this format once:
     ``read_bytes()`` where a format stores bytes no product needs (BELL's
-    zero pads and rank carries), else ``device_bytes()``."""
+    zero pads and rank carries, RSELL's padded chunk slots), else
+    ``device_bytes()``."""
     if isinstance(fmt, torch.Tensor):
         return fmt.numel() * fmt.element_size()
     if hasattr(fmt, "read_bytes"):

@@ -15,8 +15,9 @@ columns wide. For output group j and contraction block i:
 - ``vals[j, i]`` (128, W): each column's nonzeros packed to the left and
   zero-padded to W, the widest block-column rounded up to 128.
 
-The JAX packer takes a C++ converter for the bitmap when it can; the port
-uses ``_mask_to_words`` alone (the tests show both give the same words).
+``bell_pack`` takes the C++ converter (``native``) for an fp32 A's bitmap
+where it built, as the JAX packer does, and ``_mask_to_words`` otherwise:
+both give the same words.
 """
 
 from __future__ import annotations
@@ -75,9 +76,15 @@ def bell_pack(a, block_m: int = 512, w: int | None = None) -> dict[str, Any]:
     nmt = block_m // _LANES
     carries = rank.reshape(nb, mb, _LANES, nmt, _LANES)[..., 0] \
         .astype(np.int32)
-    return dict(bitmap=_mask_to_words(mask, block_m), carries=carries,
-                vals=vals, shape=(m, n), padded=(mp, np_), block_m=block_m,
-                w=w, nnz=int(mask.sum()))
+    bitmap = None
+    if a.dtype == np.float32:
+        from tpusparse_torch import native
+
+        bitmap = native.bell_bitmap(a, block_m)       # None: unavailable
+    if bitmap is None:
+        bitmap = _mask_to_words(mask, block_m)
+    return dict(bitmap=bitmap, carries=carries, vals=vals, shape=(m, n),
+                padded=(mp, np_), block_m=block_m, w=w, nnz=int(mask.sum()))
 
 
 def bell_pack_csr(csr: CsrMatrix, block_m: int = 512,

@@ -2,8 +2,9 @@
 
 ``from_reference_arrays`` takes the plain numpy leaves and metadata of a
 ``tpusparse`` ``SellMatrix``, ``AwspMatrix``, ``BsrMatrix``, ``TcsrMatrix``,
-``DiaMatrix``, ``EllMatrix``, ``BellMatrix`` or ``BinnedSellMatrix`` and
-returns the port's counterpart on ``device``. It
+``DiaMatrix``, ``EllMatrix``, ``BellMatrix``, ``BinnedSellMatrix``,
+``RsellMatrix`` or ``AspMatrix`` and returns the port's counterpart on
+``device``. It
 imports nothing of the JAX package; whoever holds the JAX object extracts
 the dict:
 
@@ -13,17 +14,23 @@ the dict:
      "nnz", "n_real"}
     {"kind": "tcsr", "s_bi", "s_bj", "idx", "vals", "w", "bsr", "shape",
      "padded", "nnz", "n_sell", "n_dense"}
-    {"kind": "dia", "offsets", "vals", "shape", "nnz", "sym"}
+    {"kind": "dia", "offsets", "vals", "shape", "nnz", "sym", "xla_only"}
     {"kind": "ell", "idx", "val", "shape", "nnz"}
     {"kind": "bell", "bitmap", "carries", "vals", "shape", "padded",
      "block_m", "w", "nnz"}
     {"kind": "binned", "idx" (list, one per bucket), "vals" (list),
      "inv_perm", "shape", "nnz", "widths"}
+    {"kind": "rsell", "cj", "ct", "idx", "vals", "shape", "padded", "nnz",
+     "n_real", "w_max", "run", "inv_perm"}
+    {"kind": "asp", "a_pad", "shape", "block_n"}
 
 ``scales`` is None except for int8 SELL storage; ``g`` is read for AWSP
-only. TCSR's ``bsr`` is the dense tier as a BSR dict (its ``kind`` may be
-left out) or None. BELL's ``bitmap`` is the uint32 words. Binned SELL's
-unpermute plan is rebuilt from ``inv_perm``. bf16 values arrive as a
+only; DIA's ``xla_only`` and RSELL's ``run`` (1) and ``inv_perm`` (None:
+an unsorted pack) may be left out. TCSR's ``bsr`` is the dense tier as a
+BSR dict (its ``kind`` may be left out) or None. BELL's ``bitmap`` is the
+uint32 words. The unpermute plans of binned SELL and of a sorted RSELL
+pack are rebuilt from ``inv_perm`` (the JAX package's ``permute_plan``,
+the same arrays). bf16 values arrive as a
 ``uint16`` view of their bits (numpy has no bf16 of its own).
 
 ``load_trainable_arrays`` carries trained values the same way: the numpy
@@ -46,8 +53,10 @@ from tpusparse_torch.formats.binned import BinnedSellMatrix
 from tpusparse_torch.formats.bsr import BsrMatrix
 from tpusparse_torch.formats.dia import DiaMatrix
 from tpusparse_torch.formats.ell import EllMatrix
+from tpusparse_torch.formats.rsell import RsellMatrix
 from tpusparse_torch.formats.sell import SellMatrix
 from tpusparse_torch.formats.tcsr import TcsrMatrix
+from tpusparse_torch.kernels.asp_spmv import AspMatrix
 from tpusparse_torch.kernels.permute import permute_plan
 from tpusparse_torch.utils import resolve_device
 
@@ -72,6 +81,9 @@ _KEYS = {
     "bell": ("bitmap", "carries", "vals", "shape", "padded", "block_m", "w",
              "nnz"),
     "binned": ("idx", "vals", "inv_perm", "shape", "nnz", "widths"),
+    "rsell": ("cj", "ct", "idx", "vals", "shape", "padded", "nnz", "n_real",
+              "w_max"),
+    "asp": ("a_pad", "shape", "block_n"),
 }
 
 
@@ -101,11 +113,26 @@ def _bsr(d: dict[str, Any], dev: torch.device) -> BsrMatrix:
                      int(d["block_m"]), int(d["nnz"]), int(d["n_real"]))
 
 
+def _rsell(d: dict[str, Any], dev: torch.device) -> RsellMatrix:
+    inv_perm, plan = d.get("inv_perm"), None
+    if inv_perm is not None:
+        inv_perm = np.ascontiguousarray(inv_perm, dtype=np.int32)
+        pp = permute_plan(inv_perm)
+        plan = (pp["oidx"], pp["oh"])
+    return RsellMatrix(_tensor(d["cj"], np.int32).to(dev),
+                       _tensor(d["ct"], np.int32).to(dev),
+                       _tensor(d["idx"], np.int8).to(dev),
+                       _values(d["vals"]).to(dev), _ints(d["shape"]),
+                       _ints(d["padded"]), int(d["nnz"]), int(d["n_real"]),
+                       int(d["w_max"]), run=int(d.get("run", 1)),
+                       inv_perm=inv_perm, perm_plan=plan)
+
+
 def from_reference_arrays(d: dict[str, Any], device=None):
     """JAX-package pack leaves -> ``SellMatrix``, ``AwspMatrix``,
     ``BsrMatrix``, ``TcsrMatrix``, ``DiaMatrix``, ``EllMatrix``,
-    ``BellMatrix`` or ``BinnedSellMatrix`` on ``device`` (None is the
-    GPU)."""
+    ``BellMatrix``, ``BinnedSellMatrix``, ``RsellMatrix`` or ``AspMatrix``
+    on ``device`` (None is the GPU)."""
     dev = resolve_device(device)
     kind = d["kind"]
     _check_keys(kind, d)
@@ -124,7 +151,8 @@ def from_reference_arrays(d: dict[str, Any], device=None):
         return DiaMatrix(_ints(d["offsets"]),
                          _tensor(d["vals"], np.float32).to(dev),
                          _ints(d["shape"]), int(d["nnz"]),
-                         sym=bool(d["sym"]))
+                         sym=bool(d["sym"]),
+                         xla_only=bool(d.get("xla_only", False)))
     if kind == "ell":
         return EllMatrix(_tensor(d["idx"], np.int32).to(dev),
                          _tensor(d["val"], np.float32).to(dev),
@@ -145,6 +173,11 @@ def from_reference_arrays(d: dict[str, Any], device=None):
         return BinnedSellMatrix(buckets, inv_perm, (pp["oidx"], pp["oh"]),
                                 _ints(d["shape"]), int(d["nnz"]),
                                 _ints(d["widths"]))
+    if kind == "rsell":
+        return _rsell(d, dev)
+    if kind == "asp":
+        return AspMatrix(_values(d["a_pad"]).to(dev), _ints(d["shape"]),
+                         int(d["block_n"]))
     idx = torch.from_numpy(np.ascontiguousarray(d["idx"], dtype=np.int8))
     vals = _values(d["vals"])
     meta = (tuple(int(s) for s in d["shape"]),

@@ -99,10 +99,22 @@ class CsrMatrix:
         return np.diff(self.row_ptr)
 
     @classmethod
-    def from_dense(cls, a) -> "CsrMatrix":
-        """Dense A as a numpy array or a tensor (copied to the host)."""
+    def from_dense(cls, a, use_native: bool | None = None) -> "CsrMatrix":
+        """Dense A as a numpy array or a tensor (copied to the host).
+        ``use_native``: the C++ converter for fp32 A (None: where it
+        built; True: raise when it did not)."""
         a = _host_numpy(a)
         m, n = a.shape
+        if use_native is not False and a.dtype == np.float32:
+            from tpusparse_torch import native
+
+            if native.available():
+                row_ptr, col_idx, values = native.csr_from_dense(a)
+                return cls(shape=(m, n), row_ptr=row_ptr, col_idx=col_idx,
+                           values=values)
+            if use_native:
+                raise RuntimeError("native converters requested but "
+                                   "unavailable")
         at = a.T                                  # (n, m): rows = output cols
         mask = at != 0
         row_nnz = mask.sum(axis=1)
@@ -204,3 +216,17 @@ class CsrMatrix:
         # duplicates sum, matching what every packed kernel does
         np.add.at(at, (rows, self.col_idx), self.values)
         return at.T
+
+    def save(self, path: str) -> None:
+        """npz with ``shape``, ``row_ptr``, ``col_idx`` and ``values``: the
+        JAX package's ``CsrMatrix.save`` layout, so either loads it."""
+        np.savez_compressed(path, shape=np.asarray(self.shape),
+                            row_ptr=self.row_ptr, col_idx=self.col_idx,
+                            values=self.values)
+
+    @classmethod
+    def load(cls, path: str) -> "CsrMatrix":
+        with np.load(path) as z:
+            return cls(shape=tuple(int(v) for v in z["shape"]),
+                       row_ptr=z["row_ptr"], col_idx=z["col_idx"],
+                       values=z["values"])

@@ -7,8 +7,8 @@ of SELL's global W; all-zero tiles store nothing. ``cj`` and ``ct`` (each
 chunk's output group and contraction window) stay two int32 arrays, as the
 JAX package packs them before its TPU-only ``(cj << 16) | ct`` plan.
 
-Packing runs on the host in numpy (the JAX package's numpy path; its C++
-path is bit-identical to it and is not ported). ``sort="auto"`` sorts the
+Packing runs on the host, through the C++ converter (``native``) where it
+built and in numpy otherwise; both give the same bits. ``sort="auto"`` sorts the
 columns by nnz exactly when the router's skew test fires, and a sorted pack
 carries the inverse permutation and its K5 plan, turned into one source
 lane per output column and its inverse (``Unpermute``); ``RsellMatrix``
@@ -40,10 +40,13 @@ _RUN = 8                       # run alignment quantum
 _RUN_PAD_FRAC = 0.2
 
 
-def rsell_pack_csr(csr: CsrMatrix, sort: bool | str = "auto") -> dict[str, Any]:
+def rsell_pack_csr(csr: CsrMatrix, sort: bool | str = "auto",
+                   use_native: bool | None = None) -> dict[str, Any]:
     """CsrMatrix (CSR of A.T) -> flat chunk stream, numpy arrays.
     ``sort``: order columns by nnz first; ``"auto"`` sorts exactly when the
-    router's skew test fires (widest column >= 1.5 x the median)."""
+    router's skew test fires (widest column >= 1.5 x the median).
+    ``use_native``: the C++ demand and fill passes for fp32 values (None:
+    where they built; True: raise when they did not)."""
     m, n_orig = csr.shape
     mp = round_up(m, _LANES)
     np_ = round_up(n_orig, _LANES)
@@ -66,6 +69,31 @@ def rsell_pack_csr(csr: CsrMatrix, sort: bool | str = "auto") -> dict[str, Any]:
     n = csr.shape[1]
     nt = mp // _LANES
     csr = _sorted_rows(csr)
+
+    from tpusparse_torch import native
+
+    if use_native is not False and csr.nnz and \
+            csr.values.dtype == np.float32 and native.available():
+        demand = native.rsell_demand_csr(csr.row_ptr, csr.col_idx, n, nt)
+        flat = demand.ravel()
+        tiles = np.flatnonzero(flat).astype(np.int64)
+        w_jt = flat[tiles].astype(np.int64)
+        tile_chunks = -(-w_jt // _SUB)
+        tile_base = np.concatenate([[0], np.cumsum(tile_chunks)])
+        nchunk = int(tile_base[-1])
+        base_grid = np.zeros(flat.size, np.int64)
+        base_grid[tiles] = tile_base[:-1]
+        vals, idx = native.rsell_fill_csr(
+            csr.row_ptr, csr.col_idx, csr.values, n, nt, base_grid, nchunk)
+        cj = (tiles // nt).astype(np.int32).repeat(tile_chunks)
+        ct = (tiles % nt).astype(np.int32).repeat(tile_chunks)
+        return _finish_pack(cj, ct, idx, vals, nchunk, int(w_jt.max()), m,
+                            n_orig, mp, np_, csr.nnz, inv_perm, perm_plan)
+    if use_native and csr.nnz:
+        raise RuntimeError("native converters requested but unavailable "
+                           f"(library loaded: {native.available()}, values "
+                           f"dtype: {csr.values.dtype})")
+
     r = np.repeat(np.arange(n, dtype=np.int64), csr.row_nnz)
     mi = csr.col_idx.astype(np.int64)
     bi = mi // _LANES
@@ -238,6 +266,13 @@ class RsellMatrix:
     def device_bytes(self) -> int:
         """Bytes of the chunk stream: values, indices, cj and ct."""
         return self.vals.numel() * (self.vals.element_size() + 1) + \
+            self.cj.numel() * 8
+
+    def read_bytes(self) -> int:
+        """The bytes a product must read: the live values with their
+        one-byte indices, and each chunk's cj and ct. The padded slots of
+        each 8 x 128 chunk are zero and need not be read."""
+        return self.nnz * (self.vals.element_size() + 1) + \
             self.cj.numel() * 8
 
     def to_dense(self) -> torch.Tensor:

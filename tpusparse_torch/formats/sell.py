@@ -6,8 +6,9 @@ bit for bit: A (M, N) -> windows t over M (128 each), column groups j over N
 within window t (zero-padded to W); ``idx[j, t, s, r]`` = its in-window
 m-offset (int8, 0..127). Pad slots point at offset 0 with value 0.
 
-Packing runs on the host in numpy; the packed arrays then move to the
-matrix's device as tensors. Storage lanes:
+Packing runs on the host, through the C++ converter (``native``) for fp32
+where it built and in numpy otherwise (the same bits); the packed arrays
+then move to the matrix's device as tensors. Storage lanes:
 
 - fp32 (default);
 - bf16: packed in fp32, then ``torch.from_numpy(v).to(torch.bfloat16)``
@@ -48,13 +49,30 @@ def _lane(dtype: Any) -> str | None:
     raise ValueError(f"unsupported SELL storage dtype: {dtype!r}")
 
 
-def _sell_pack_np(a: np.ndarray, w: int | None = None) -> dict[str, Any]:
-    """The numpy packer: dense (m, n) -> (nb, nt, W, 128) idx/vals."""
+def _sell_pack_np(a: np.ndarray, w: int | None = None,
+                  use_native: bool | None = None) -> dict[str, Any]:
+    """Dense (m, n) -> (nb, nt, W, 128) idx/vals in numpy, or through the
+    C++ converter (fp32 A; ``use_native`` None: where it built)."""
     m, n = a.shape
     mp, np_ = round_up(m, _LANES), round_up(n, _LANES)
     if (mp, np_) != (m, n):
         a = np.pad(a, ((0, mp - m), (0, np_ - n)))
     nt, nb = mp // _LANES, np_ // _LANES
+
+    if use_native is not False and a.dtype == np.float32:
+        from tpusparse_torch import native
+
+        if native.available():
+            max_nnz = native.sell_max_window_nnz(a)
+            if w is None:
+                w = max(round_up(max_nnz, _SUB), _SUB)
+            elif max_nnz > w:
+                raise ValueError(f"w={w} < max window-column nnz {max_nnz}")
+            vals, idx = native.sell_fill(a, w)
+            return dict(idx=idx, vals=vals, shape=(m, n), padded=(mp, np_),
+                        w=w, nnz=int((a != 0).sum()))
+        if use_native:
+            raise RuntimeError("native converters requested but unavailable")
 
     # t4[j, t, r, c] = A[t*128 + c, j*128 + r]: rows are output columns,
     # lanes c are in-window contraction offsets.
@@ -93,11 +111,13 @@ def _to_host_tensors(p: dict[str, Any], lane: str | None) -> dict[str, Any]:
     return dict(p, idx=torch.from_numpy(p["idx"]), vals=vals, scales=scales)
 
 
-def sell_pack(a, w: int | None = None, dtype: Any = None) -> dict[str, Any]:
+def sell_pack(a, w: int | None = None, dtype: Any = None,
+              use_native: bool | None = None) -> dict[str, Any]:
     """Dense A (numpy or tensor) -> dict of host tensors ``idx``, ``vals``,
     ``scales`` (None unless int8) and metadata ``shape``, ``padded``, ``w``,
     ``nnz``. ``dtype``: storage lane (None/float32, bfloat16, int8)."""
-    return _to_host_tensors(_sell_pack_np(_host_numpy(a), w), _lane(dtype))
+    return _to_host_tensors(_sell_pack_np(_host_numpy(a), w, use_native),
+                            _lane(dtype))
 
 
 def _sorted_rows(csr: CsrMatrix) -> CsrMatrix:
@@ -114,13 +134,31 @@ def _sorted_rows(csr: CsrMatrix) -> CsrMatrix:
                      col_idx=ci[order], values=np.asarray(csr.values)[order])
 
 
-def sell_pack_csr(csr: CsrMatrix, w: int | None = None) -> dict[str, Any]:
+def sell_pack_csr(csr: CsrMatrix, w: int | None = None,
+                  use_native: bool | None = None) -> dict[str, Any]:
     """Pack straight from a ``CsrMatrix`` (CSR of A.T) without ever
-    materializing dense A. Returns the same dict as ``sell_pack``."""
+    materializing dense A. Returns the same dict as ``sell_pack``.
+    ``use_native``: the C++ packer for fp32 values (None: where it
+    built)."""
     m, n = csr.shape
     mp, np_ = round_up(m, _LANES), round_up(n, _LANES)
     nt, nb = mp // _LANES, np_ // _LANES
     csr = _sorted_rows(csr)   # ranking assumes m ascending within each row
+
+    if use_native is not False:
+        from tpusparse_torch import native
+
+        if csr.values.dtype == np.float32 and native.available():
+            vals, idx, w = native.sell_fill_csr(csr.row_ptr, csr.col_idx,
+                                                csr.values, n, nt, w)
+            return _to_host_tensors(dict(idx=idx, vals=vals, shape=(m, n),
+                                         padded=(mp, np_), w=w,
+                                         nnz=int(csr.nnz)), None)
+        if use_native:
+            raise RuntimeError(
+                "native converters requested but unavailable (library "
+                f"loaded: {native.available()}, values dtype: "
+                f"{csr.values.dtype}; the native packer is fp32-only)")
     jj, t, rank, rr, off, w = _csr_slot_coords(csr, w)
     vals = np.zeros((nb, nt, w, _LANES), dtype=csr.values.dtype)
     idx = np.zeros((nb, nt, w, _LANES), dtype=np.int8)

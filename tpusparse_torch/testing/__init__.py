@@ -1,5 +1,6 @@
 from tpusparse_torch.testing.generators import (  # noqa: F401
     block_pruned_matrix,
+    mesh_csr,
     random_sparse_batch,
     random_sparse_csr,
     random_sparse_matrix,

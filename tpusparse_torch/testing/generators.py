@@ -10,7 +10,8 @@ callers move it to a device.
 - ``blocks``: block-structured sparsity.
 
 Beside them: ``stencil_csr`` (lattice Laplacians, the banded workload DIA
-serves) and ``block_pruned_matrix`` (block-pruned weights, the workload
+serves), ``mesh_csr`` (an unstructured triangle-mesh Laplacian, AMG's greedy
+workload) and ``block_pruned_matrix`` (block-pruned weights, the workload
 TCSR serves).
 """
 
@@ -153,6 +154,35 @@ def stencil_csr(dims: tuple[int, ...], points: int | None = None,
     return CsrMatrix.from_coo(
         n, n, np.concatenate(rows_l), np.concatenate(cols_l),
         np.concatenate(vals_l).astype(dtype))
+
+
+def mesh_csr(nx: int, ny: int, seed: int = 0, jitter: float = 0.35,
+             dtype=np.float32) -> "CsrMatrix":
+    """Unstructured-FEM-style operator: the graph Laplacian (plus 1e-3 on
+    the diagonal, so SPD) of the Delaunay triangulation of a jittered
+    (nx, ny) point cloud. Node degrees are irregular (typically 4-9) and
+    the bandwidth wanders: no lattice detector should fire on it."""
+    from scipy.spatial import Delaunay
+
+    from tpusparse_torch.formats.csr import CsrMatrix
+
+    rng = _rng(seed ^ 0xDE1A)
+    gx, gy = np.meshgrid(np.arange(nx, dtype=np.float64),
+                         np.arange(ny, dtype=np.float64), indexing="ij")
+    pts = np.stack([gx.ravel(), gy.ravel()], axis=1)
+    pts += rng.uniform(-jitter, jitter, size=pts.shape)
+    tri = Delaunay(pts)
+    s = tri.simplices                            # (nt, 3)
+    e = np.concatenate([s[:, [0, 1]], s[:, [1, 2]], s[:, [0, 2]]])
+    e = np.unique(np.sort(e, axis=1), axis=0)
+    n = pts.shape[0]
+    rows = np.concatenate([e[:, 0], e[:, 1]]).astype(np.int64)
+    cols = np.concatenate([e[:, 1], e[:, 0]]).astype(np.int64)
+    deg = np.bincount(rows, minlength=n).astype(np.float64)
+    r = np.concatenate([rows, np.arange(n, dtype=np.int64)])
+    ci = np.concatenate([cols, np.arange(n, dtype=np.int64)])
+    v = np.concatenate([-np.ones(rows.size), deg + 1e-3]).astype(dtype)
+    return CsrMatrix.from_coo(n, n, r, ci, v)
 
 
 def block_pruned_matrix(m: int, n: int, block: int = 128,

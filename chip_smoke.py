@@ -172,7 +172,33 @@ and then the solver user's path on the 1M-unknown Laplacian (BENCH.md
     permuted space within 1e-4 of scipy's direct solve; (f) the port's
     ``entry()`` against the float64 oracle and K1 against its plain
     version. Its launches of K1, K4, K6, K7 and K8 join their rows'
-    ``launches_all_paths`` and ``by_workload["solver-laplace2d-1M"]``.
+    ``launches_all_paths`` and ``by_workload["solver-laplace2d-1M"]``;
+
+and then the sharded serving path (``tpusparse_torch.parallel``), whose
+list is the JAX package's ``dryrun_multichip`` (``parallel/dryrun.py``,
+at full width: the headline 4096^2 for dense, SELL n/m/ring/2d and ragged
+n, BSR n/m/ring/2d and AWSP n/m/ring; the skew 8192^2 for RSELL balance
+and sorted and binned SELL; blockpruned-4096 for TCSR; DIA halo and n on
+the Laplacian and the 27-point stencil; SpMM cases at B = 8):
+
+17. (a) K8 with halo strips, one process: each banded operator cut into
+    D = 2 and 4 slabs by the JAX package's slab rule, each slab run with
+    its neighbours' edges as strips (the ring's wrap included, the vals
+    strip zero on the first slab): every slab gives its plain version's
+    bits and the joined slabs the unsharded K8's; (b) the list at world
+    size 1 over NCCL (``initialize()`` in this process), its launches of
+    K1 and K3-K8 (K8 with strips) counted, every case within 1e-4 of its
+    unsharded public call and 1e-3 of the oracle, and ``comm``'s
+    collectives exact; (c) meanwhile a world of 2 ranks over gloo sharing
+    this card (this script as two child processes, ``--sharded-rank``;
+    "transport: gloo via host"): the same list, both ranks the same y,
+    within 1e-3 of the oracle and 1e-4 of (b), and CG through
+    ``dia_spmm_sharded(..., "halo")`` in the unsharded K8 CG's iterations
+    (445) with its bits; a child's failure fails the phase. Then, alone
+    on the card, K8's strip body is timed on a slab, and
+    ``bench.shard_overhead`` times the sharded call at world size 1
+    against the unsharded one (SELL, DIA, TCSR). Every sharded kernel's
+    row gets ``sharded_launches``, K8's row ``strip_body``.
 
 Kernel against plain version: atol 1e-4 (the same products summed in
 another order); against the float64 oracle: atol 1e-3 (the repo's
@@ -220,7 +246,8 @@ from tpusparse_torch.kernels.bell_spmv import bell_spmm, bell_spmm_plain
 from tpusparse_torch.kernels.bsell_spmv import bsell_spmm, bsell_spmm_plain
 from tpusparse_torch.kernels.bsr_spmv import bsr_spmm, bsr_spmm_plain
 from tpusparse_torch.kernels.dense import dense_cuda, dense_plain, dense_torch
-from tpusparse_torch.kernels.dia_spmv import dia_spmv, dia_spmv_plain, fits
+from tpusparse_torch.kernels.dia_spmv import (dia_spmv, dia_spmv_plain, fits,
+                                              halo_rows)
 from tpusparse_torch.kernels.permute import (permute_columns,
                                              permute_columns_plain)
 from tpusparse_torch.kernels.rsell_spmv import rsell_spmm, rsell_spmm_plain
@@ -229,6 +256,7 @@ from tpusparse_torch.kernels.sell_mxu_spmm import (sell_mxu_spmm,
                                                    sell_mxu_spmm_plain)
 from tpusparse_torch.kernels.sell_spmv import sell_spmm, sell_spmm_plain
 from tpusparse_torch.nn import SparseLinear
+from tpusparse_torch.parallel.sparse import halo_slab_rows
 from tpusparse_torch.testing import generators, reference
 from tpusparse_torch.testing.tester import KernelEntry, SpmvTester
 
@@ -364,7 +392,7 @@ def kernel_cases(a, dev):
 
     def sell_case(xt, y_ref):
         args = (sell.idx, sell.vals, xt)
-        nbytes = sell.device_bytes() + 4 * (xt.numel() + xt.shape[0] * n)
+        nbytes = format_bytes(sell) + 4 * (xt.numel() + xt.shape[0] * n)
         return (lambda: sell_spmm(*args, n=n),
                 lambda: sell_spmm_plain(*args, n=n), cusparse(at_csr, xt),
                 nbytes, 2 * nnz * xt.shape[0], y_ref)
@@ -883,6 +911,11 @@ def banded_path(csr, x1, x8, dev) -> tuple[DiaMatrix, dict]:
     return d, launches
 
 
+def sell_tier_bytes(t: TcsrMatrix) -> int:
+    """The live bytes of a TCSR pack's SELL tier, all that K7 reads."""
+    return t.read_bytes() - (0 if t.bsr is None else t.bsr.read_bytes())
+
+
 def block_kernel_cases(a, f1: TcsrMatrix, f8: TcsrMatrix, dev):
     """K7 on the B = 1 pack's SELL tier, K6 on the B = 8 pack's dense
     tier, each at both batches."""
@@ -895,7 +928,7 @@ def block_kernel_cases(a, f1: TcsrMatrix, f8: TcsrMatrix, dev):
 
     def bsell_case(xt, y_ref):
         args = (f1.s_bi, f1.s_bj, f1.idx, f1.vals, xt)
-        nbytes = f1.device_bytes() + 4 * (xt.numel() + xt.shape[0] * n)
+        nbytes = sell_tier_bytes(f1) + 4 * (xt.numel() + xt.shape[0] * n)
         return (lambda: bsell_spmm(*args, n_padded=f1.padded[1], n=n,
                                    plan=f1._work),
                 lambda: bsell_spmm_plain(*args, n_padded=f1.padded[1], n=n),
@@ -903,7 +936,7 @@ def block_kernel_cases(a, f1: TcsrMatrix, f8: TcsrMatrix, dev):
 
     def bsr_case(xt, y_ref):
         args = (b.bi, b.bj, b.blocks, xt)
-        nbytes = b.device_bytes() + 4 * (xt.numel() + xt.shape[0] * n)
+        nbytes = format_bytes(b) + 4 * (xt.numel() + xt.shape[0] * n)
         return (lambda: bsr_spmm(*args, n_padded=b.padded[1], n=n,
                                  plan=b._work),
                 lambda: bsr_spmm_plain(*args, n_padded=b.padded[1], n=n),
@@ -1316,7 +1349,7 @@ def registry_block_cases(a, packs, dev):
 
     def bsr_case(xt, y_ref):
         args = (b.bi, b.bj, b.blocks, xt)
-        nbytes = b.device_bytes() + 4 * (xt.numel() + xt.shape[0] * n)
+        nbytes = format_bytes(b) + 4 * (xt.numel() + xt.shape[0] * n)
         return (lambda: bsr_spmm(*args, n_padded=b.padded[1], n=n,
                                  plan=b._work),
                 lambda: bsr_spmm_plain(*args, n_padded=b.padded[1], n=n),
@@ -1325,7 +1358,7 @@ def registry_block_cases(a, packs, dev):
 
     def bsell_case(xt, y_ref):
         args = (t.s_bi, t.s_bj, t.idx, t.vals, xt)
-        nbytes = t.device_bytes() + 4 * (xt.numel() + xt.shape[0] * n)
+        nbytes = sell_tier_bytes(t) + 4 * (xt.numel() + xt.shape[0] * n)
         return (lambda: bsell_spmm(*args, n_padded=t.padded[1], n=n,
                                    plan=t._work),
                 lambda: bsell_spmm_plain(*args, n_padded=t.padded[1], n=n),
@@ -2066,6 +2099,419 @@ def solver_workload(phase: dict, name: str) -> dict:
     return out
 
 
+# -- phase 17: the sharded path ------------------------------------------
+
+SHARDED_WRAPPERS = {"sell_spmv": sell_spmm, "awsp_spmv": awsp_spmm,
+                    "rsell_spmv": rsell_spmm, "permute": permute_columns,
+                    "bsr_spmv": bsr_spmm, "bsell_spmv": bsell_spmm,
+                    "dia_spmv": dia_spmv}
+CHILD_WORLD = 2
+CHILD_TIMEOUT = 600
+
+
+def sharded_zero() -> None:
+    for w in SHARDED_WRAPPERS.values():
+        w.launches = 0
+    dia_spmv.strip_launches = 0
+
+
+def sharded_read() -> dict[str, int]:
+    out = {name: w.launches for name, w in SHARDED_WRAPPERS.items()}
+    out["dia_strips"] = dia_spmv.strip_launches
+    return out
+
+
+def require_sharded_launches(c: dict[str, int], where: str) -> None:
+    """Every kernel of the sharded path launched, K8 with its strips."""
+    for name in (*SHARDED_WRAPPERS, "dia_strips"):
+        require(c[name] > 0, f"{where}: no {name} launch on the sharded "
+                f"path ({json.dumps(c)})")
+
+
+def ring_slabs(d: DiaMatrix, x: torch.Tensor, ranks: int):
+    """The halo partition's slabs of (vals, x) at ``ranks`` ranks, on the
+    JAX package's slab width, and each slab's strips as the ring hands
+    them: the left neighbour's last hs x and vals, the right neighbour's
+    first hs x (wrapping round), the vals strip zero on rank 0."""
+    n, k = d.shape[1], len(d.offsets)
+    hrows = halo_rows(d.offsets, d.sym)
+    hs = hrows * 128
+    rows = halo_slab_rows(k, hrows, n, ranks)
+    nl = (n + (-n % (ranks * rows * 128))) // ranks
+    xp = torch.nn.functional.pad(x, (0, ranks * nl - n))
+    vp = torch.nn.functional.pad(d.vals, (0, ranks * nl - n))
+    xs = [xp[r * nl:(r + 1) * nl] for r in range(ranks)]
+    vs = [vp[:, r * nl:(r + 1) * nl].contiguous() for r in range(ranks)]
+    out = []
+    for r in range(ranks):
+        left = (r - 1) % ranks
+        strips = dict(
+            xstrip_l=xs[left][-hs:].contiguous(),
+            xstrip_r=xs[(r + 1) % ranks][:hs].contiguous(),
+            vstrip=None if not d.sym else (
+                torch.zeros((k, hs), device=x.device) if r == 0
+                else vs[left][:, -hs:].contiguous()))
+        out.append((vs[r], xs[r], nl, strips))
+    return out, hs
+
+
+def check_strips(dias: dict[str, DiaMatrix], dev) -> dict:
+    """17a: K8 with halo strips, slab by slab, on each banded operator at
+    D = 2 and 4: the slabs joined give the unsharded K8's bits, and each
+    slab its plain version's. Returns the slab of the Laplacian at D = 2
+    that is timed later."""
+    timed = None
+    for name, d in dias.items():
+        n = d.shape[1]
+        x = torch.from_numpy(generators.random_sparse_vector(n, 0.5, 0)) \
+            .to(dev)
+        want = d.spmv(x)
+        for ranks in (2, 4):
+            slabs, hs = ring_slabs(d, x, ranks)
+            ys = []
+            for r, (v, xs, nl, strips) in enumerate(slabs):
+                y = dia_spmv(d.offsets, v, xs, sym=d.sym, n=nl, plan=d.plan,
+                             **strips)
+                yp = dia_spmv_plain(d.offsets, v, xs, sym=d.sym, n=nl,
+                                    **strips)
+                sync(dev)
+                require(torch.equal(y, yp), f"K8 strips {name} D={ranks} "
+                        f"slab {r}: not the plain version's bits")
+                ys.append(y)
+            require(torch.equal(torch.cat(ys)[:n], want),
+                    f"K8 strips {name} D={ranks}: the joined slabs are not "
+                    f"the unsharded K8's bits")
+            print(f"   K8 strips, {name} at D={ranks}: {ranks} slabs of "
+                  f"{slabs[0][2]} (hs {hs}), joined = unsharded K8 bit for "
+                  f"bit, each slab = its plain version")
+            if name == "laplace" and ranks == 2:
+                timed = (d, slabs[1])
+    return timed
+
+
+def time_strip_body(timed, dev) -> dict:
+    """K8's strip body on one slab (the Laplacian's rank 1 of 2), timed
+    beside its plain version, its bound (the slab's vals, x, the three
+    strips and y, each moved once) and K8 on the slab with no strips."""
+    d, (v, xs, nl, strips) = timed
+    hbm = detect_hbm_gbps() * 1e9
+
+    def kern():
+        return dia_spmv(d.offsets, v, xs, sym=d.sym, n=nl, plan=d.plan,
+                        **strips)
+
+    def plain():
+        return dia_spmv_plain(d.offsets, v, xs, sym=d.sym, n=nl, **strips)
+
+    nbytes = 4 * (v.numel() + 2 * nl + sum(t.numel() for t in
+                                           strips.values()))
+    ms = device_time(kern, name="dia_spmv strips").seconds * 1e3
+    bare_ms = device_time(lambda: dia_spmv(d.offsets, v, xs, sym=d.sym, n=nl,
+                                           plan=d.plan),
+                          name="dia_spmv no strips").seconds * 1e3
+    plain_ms = device_time(plain, name="dia_spmv strips plain", warmup=1,
+                           reps=5).seconds * 1e3
+    terms = len(d.offsets) + sum(1 for o in d.offsets if o > 0) * d.sym
+    t_bytes = nbytes / hbm * 1e3
+    t_ops = 2 * terms * nl / (FP32_TFLOPS * 1e12) * 1e3
+    bound = max(t_bytes, t_ops)
+    require(bound / ms <= ARTIFACT_SHARE, f"K8 strips: share {bound / ms}")
+    row = {"workload": f"laplace2d-1M slab 1 of 2 ({nl} outputs)",
+           "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None, "bytes": nbytes, "share": bound / ms,
+           "no_strips_ms": bare_ms}
+    print(f"   K8 strip body on {row['workload']}: {ms * 1e3:.2f} us, bound "
+          f"{bound * 1e3:.2f} us, share {bound / ms:.3f} | plain "
+          f"{plain_ms * 1e3:.2f} us | the slab with no strips "
+          f"{bare_ms * 1e3:.2f} us")
+    return row
+
+
+def public_calls(ops, packs, dias: dict[str, DiaMatrix], dev) -> dict:
+    """The unsharded public call of each sharded case, on the card."""
+    a_dev = torch.from_numpy(ops["a"]).to(dev)
+    x, xb = (torch.from_numpy(ops[k]).to(dev) for k in ("x", "xb"))
+    xs, xk = (torch.from_numpy(ops[k]).to(dev) for k in ("x_skew",
+                                                         "x_blocky"))
+
+    def sell_on(s):
+        return SellMatrix(s.idx.to(dev), s.vals.to(dev), s.shape, s.padded,
+                          s.w, s.nnz)
+
+    sell, sell_rag = sell_on(packs["sell"]), sell_on(packs["sell_ragged"])
+    h = packs["awsp"]
+    awsp = AwspMatrix(h.idx.to(dev), h.vals.to(dev), h.shape, h.padded, h.w,
+                      h.g, h.nnz)
+    bsr = BsrMatrix.from_dense(ops["a"], device=dev)
+    bm = packs["binned"]
+    binned = BinnedSellMatrix([{k: v.to(dev) for k, v in bk.items()}
+                               for bk in bm.buckets], bm.inv_perm,
+                              bm.perm_plan, bm.shape, bm.nnz, bm.widths)
+    rsell = RsellMatrix.from_dense(ops["a_skew"], device=dev)
+    tcsr = TcsrMatrix.from_dense(ops["a_blocky"], device=dev)
+    calls = {}
+    for p in ("n", "m", "ring"):
+        calls[f"dense[{p}]"] = lambda: dense_torch(a_dev, x)
+        calls[f"sell[{p}]"] = lambda: sell.spmv(x)
+        calls[f"bsr[{p}]"] = lambda: bsr.spmv(x)
+        calls[f"awsp[{p}]"] = lambda: awsp.spmv(ops["x"])
+    calls["sell[n ragged]"] = lambda: sell_rag.spmv(x)
+    calls["sell[2d]"] = lambda: sell.spmm(xb)
+    calls["bsr[2d]"] = lambda: bsr.spmm(xb)
+    calls["binned[n]"] = lambda: binned.spmv(xs)
+    for s in ("balance", "sorted"):
+        calls[f"rsell[{s}]"] = lambda: rsell.spmv(xs)
+    calls["tcsr[n]"] = lambda: tcsr.spmv(xk)
+    dias = dict(dias)
+    xds = {name: torch.from_numpy(ops["x_stencil"][name]).to(dev)
+           for name in dias}
+    if ops["band"] is not None:      # the small list's band of A
+        dias["band"] = DiaMatrix.from_dense(ops["band"], device=dev)
+        xds["band"] = x
+    for name, d in dias.items():
+        for p in ("halo", "n"):
+            calls[f"dia[{p}] {name}"] = lambda d=d, xd=xds[name]: d.spmv(xd)
+    return calls
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def sharded_world1(ops, host_dias, dias, dev) -> tuple[dict, dict, object]:
+    """17b: the case list at world size 1 over NCCL (``initialize()`` in
+    this process), counted; each case against the unsharded public call
+    and the float64 oracle."""
+    from tpusparse_torch.parallel import dryrun, initialize, make_mesh
+
+    t0 = time.perf_counter()
+    rank_dev = initialize(device=dev)
+    require(torch.distributed.get_backend() == "nccl"
+            and rank_dev.type == dev.type == "cuda",
+            f"world 1: {torch.distributed.get_backend()} on {rank_dev}")
+    mesh, mesh2 = make_mesh({"n": 1}), make_mesh({"b": 1, "n": 1})
+    got = dryrun.collectives(mesh)
+    for name, want in dryrun.expected_collectives(1, 0).items():
+        require(np.array_equal(got[name].cpu().numpy(), want),
+                f"world 1: comm {name} is wrong")
+    packs = dryrun.host_packs(ops, 1, 1, dia=host_dias)
+    t_pack = time.perf_counter() - t0
+    calls = dryrun.sharded_calls(ops, packs, mesh, mesh2)
+    for call in calls.values():      # first calls upload each rank's shard
+        call()
+    sync(dev)
+    sharded_zero()
+    got = {case: call() for case, call in calls.items()}
+    sync(dev)
+    counts = sharded_read()
+    tally({k: v for k, v in counts.items() if k in ALL_WRAPPERS})
+    require_sharded_launches(counts, "world 1 (NCCL)")
+    public = public_calls(ops, packs, dias, dev)
+    errs = {}
+    for case, y in got.items():
+        want = dryrun.oracle(ops, case)
+        e_pub, e_ref = max_err(y, public[case]()), max_err(y, want)
+        require(e_pub <= PLAIN_ATOL and e_ref <= ATOL,
+                f"sharded {case} at world 1: |y-public| {e_pub:.3e}, "
+                f"|y-oracle| {e_ref:.3e}")
+        errs[case] = {"public": e_pub, "oracle": e_ref}
+    print(f"-- phase 17b: {len(got)} sharded cases at world 1 over NCCL "
+          f"(mesh {{'n': 1}}, 2d on {{'b': 1, 'n': 1}}; host packs "
+          f"{t_pack:.1f} s): every case within {PLAIN_ATOL} of its unsharded "
+          f"public call and {ATOL} of the oracle (worst "
+          f"{max(e['oracle'] for e in errs.values()):.2e}); launches "
+          f"{json.dumps(counts)}")
+    host = {case: y.cpu().numpy() for case, y in got.items()}
+    return host, counts, mesh
+
+
+def spawn_children(out_dir, size: str, dev) -> list:
+    """17c: start the world of CHILD_WORLD ranks over gloo on this card
+    (this script with ``--sharded-rank``)."""
+    import os
+    import socket
+    import subprocess
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sharded-rank", str(r),
+         str(CHILD_WORLD), str(port), str(out_dir), size, str(dev)],
+        cwd=here, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(CHILD_WORLD)]
+
+
+def sharded_child(rank: int, world: int, port: int, out_dir: str,
+                  size: str = "full", device: str = "cuda:0") -> int:
+    """One rank of 17c: the case list (``dryrun``'s ``size``) and a CG
+    through the halo partition, over gloo on ``device``; results to
+    ``out_dir/rank<r>.npz`` and ``.json``."""
+    import os
+
+    from tpusparse_torch.parallel import (comm, dryrun, initialize,
+                                          make_mesh)
+    from tpusparse_torch.parallel.sparse import dia_spmm_sharded
+    from tpusparse_torch.solve import cg
+
+    t0 = time.perf_counter()
+    dev = initialize(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                     device=device)
+    mesh = make_mesh({"n": world})
+    mesh2 = make_mesh({"b": world, "n": 1})
+    ops = dryrun.operands(size, world)
+    packs = dryrun.host_packs(ops, world, 1)
+    t_pack = time.perf_counter() - t0
+    calls = dryrun.sharded_calls(ops, packs, mesh, mesh2)
+    got = dryrun.collectives(mesh)
+    for name, want in dryrun.expected_collectives(world, rank).items():
+        if not np.array_equal(got[name].cpu().numpy(), want):
+            raise SmokeFailure(f"rank {rank}: comm {name} is wrong")
+    sharded_zero()
+    res = {case: call().cpu().numpy() for case, call in calls.items()}
+    sync(dev)
+    counts = sharded_read()
+    dm = packs["dia"]["laplace"]
+    b = torch.from_numpy(generators.random_sparse_vector(dm.shape[0], 0.5, 0)
+                         ).to(dev)
+    t1 = time.perf_counter()
+    z, info = cg(lambda v: dia_spmm_sharded(dm, v, mesh, "halo"), b,
+                 tol=SOLVER_TOL)
+    t_cg = time.perf_counter() - t1
+    res["cg_z"] = z.cpu().numpy()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "device": str(dev), "counts": counts,
+                   "transport": comm.transport(mesh.get_group("n"), dev),
+                   "cg_iters": int(info["iters"]), "cg_s": t_cg,
+                   "pack_s": t_pack, "s": time.perf_counter() - t0}, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def join_children(procs, out_dir, world1: dict, cg_ref) -> dict:
+    """17c's check: every child ended well; its cases within 1e-3 of the
+    oracle and 1e-4 of world 1's; both ranks the same y; the sharded CG
+    took the unsharded K8 CG's iterations and gave its bits."""
+    import os
+
+    from tpusparse_torch.parallel import dryrun
+
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=CHILD_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0, f"sharded rank {r} of {CHILD_WORLD} "
+                f"failed (exit {p.returncode}):\n{log[-4000:]}")
+    ranks = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
+             for r in range(CHILD_WORLD)]
+    info = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+            for r in range(CHILD_WORLD)]
+    ops = world1["ops"]
+    errs = {}
+    for case, y1 in world1["y"].items():
+        y = ranks[0][case]
+        for r in range(1, CHILD_WORLD):
+            require(np.array_equal(ranks[r][case], y),
+                    f"world {CHILD_WORLD}: {case} differs on rank {r}")
+        e_ref = float(np.abs(y.astype(np.float64)
+                             - dryrun.oracle(ops, case)).max())
+        e_w1 = float(np.abs(y.astype(np.float64) - y1).max())
+        require(e_ref <= ATOL and e_w1 <= PLAIN_ATOL,
+                f"sharded {case} at world {CHILD_WORLD}: |y-oracle| "
+                f"{e_ref:.3e}, |y-world1| {e_w1:.3e}")
+        errs[case] = {"oracle": e_ref, "world1": e_w1}
+    z_ref, iters_ref = cg_ref
+    for r, inf in enumerate(info):
+        require_sharded_launches(inf["counts"],
+                                 f"world {CHILD_WORLD} rank {r}")
+        require(inf["transport"] == "gloo via host",
+                f"rank {r} transport {inf['transport']}")
+        require(inf["cg_iters"] == iters_ref
+                and np.array_equal(ranks[r]["cg_z"], z_ref),
+                f"sharded CG on rank {r}: {inf['cg_iters']} iterations "
+                f"against the unsharded K8 CG's {iters_ref}, or other bits")
+    print(f"-- phase 17c: a world of {CHILD_WORLD} ranks on this card, "
+          f"transport: {info[0]['transport']}; {len(errs)} cases within "
+          f"{ATOL} of the oracle (worst "
+          f"{max(e['oracle'] for e in errs.values()):.2e}) and {PLAIN_ATOL} "
+          f"of world 1 (worst {max(e['world1'] for e in errs.values()):.2e})"
+          f"; sharded CG (halo, K8 with strips): {info[0]['cg_iters']} "
+          f"iterations, the unsharded K8 CG's bits; ranks took "
+          f"{[round(i['s'], 1) for i in info]} s (host packs "
+          f"{[round(i['pack_s'], 1) for i in info]} s, CG "
+          f"{[round(i['cg_s'], 2) for i in info]} s); launches "
+          f"{json.dumps([i['counts'] for i in info])}")
+    return {"errs": errs, "ranks": info}
+
+
+def sharded_path(d_lap: DiaMatrix, dev, size: str = "full") -> dict:
+    """Phase 17: the sharded serving path (``tpusparse_torch.parallel``) on
+    ``dryrun``'s ``size`` operands."""
+    import tempfile
+
+    from tpusparse_torch.bench import shard_overhead
+    from tpusparse_torch.parallel import dryrun
+    from tpusparse_torch.solve import cg
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = spawn_children(out_dir, size, dev)  # they pack meanwhile
+        try:
+            ops = dryrun.operands(size, CHILD_WORLD)   # the children's
+            host_dias = {name: DiaMatrix.from_csr(c, device="cpu")
+                         for name, c in ops["stencils"].items()}
+            dias = {name: DiaMatrix(h.offsets, h.vals.to(dev), h.shape,
+                                    h.nnz, sym=h.sym)
+                    for name, h in host_dias.items()}
+            print("-- phase 17a: K8 with halo strips, slab by slab")
+            timed = check_strips(dias, dev)
+            y1, c1, mesh = sharded_world1(ops, host_dias, dias, dev)
+            b = torch.from_numpy(generators.random_sparse_vector(
+                d_lap.shape[0], 0.5, 0)).to(dev)
+            z, info = cg(d_lap, b, tol=SOLVER_TOL)
+            c2 = join_children(procs, out_dir, {"ops": ops, "y": y1},
+                               (z.cpu().numpy(), int(info["iters"])))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    strip_row = time_strip_body(timed, dev)
+    card = card_info()["line"]
+    over = shard_overhead.run(mesh, verbose=False)
+    print(f"-- phase 17b: the sharded call at world size 1 (NCCL) against the "
+          f"unsharded public call, {card}: " + "; ".join(
+              f"{k} {over[k]['sharded_us']:.2f} us sharded / "
+              f"{over[k]['unsharded_us']:.2f} us unsharded = "
+              f"{over[k]['ratio']:.3f} (back to back "
+              f"{over[k]['sharded_call_us']:.1f} / "
+              f"{over[k]['unsharded_call_us']:.1f} us = "
+              f"{over[k]['call_ratio']:.2f})" for k in ("sell", "dia", "tcsr")))
+    phase = {"world1_launches": c1, "world2": c2["ranks"],
+             "cg_iters": int(info["iters"]), "strip_body": strip_row,
+             "shard_overhead": over,
+             "seconds": time.perf_counter() - t_phase}
+    print(f"   phase 17 took {phase['seconds']:.1f} s")
+    print(json.dumps({"sharded_path": phase}))
+    torch.distributed.destroy_process_group()
+    return phase
+
+
 def kernel_rows(results, launches, batch_of) -> list[dict]:
     rows = []
     for name, res in results.items():
@@ -2164,6 +2610,7 @@ def main() -> int:
     binned_k5 = check_binned(a_s, x1_s, x8_s, dev)
     _, k11_row = floors_study(dev)
     solver = solver_path(csr, d, dev)
+    sharded = sharded_path(d, dev)
 
     kernels = kernel_rows(results, launches, {}) + \
         kernel_rows(skew_results, skew_launches, PATH_BATCH) + \
@@ -2180,8 +2627,16 @@ def main() -> int:
                 registry_blocks[row["name"]]["by_batch"].items()}}
     for row in kernels:
         row["launches_all_paths"] = TOTALS[row["name"]]
+        if row["name"] in SHARDED_WRAPPERS:
+            row["sharded_launches"] = {
+                "world1_nccl": sharded["world1_launches"][row["name"]],
+                "world2_gloo": [r["counts"][row["name"]]
+                                for r in sharded["world2"]]}
         if row["name"] == "dia_spmv":
             row.setdefault("by_workload", {})["stencil27-104"] = {"1": dia27}
+            row["strip_body"] = dict(
+                sharded["strip_body"],
+                launches=sharded["world1_launches"]["dia_strips"])
         if row["name"] in SOLVER_WRAPPERS:
             row.setdefault("by_workload", {})["solver-laplace2d-1M"] = \
                 solver_workload(solver, row["name"])
@@ -2210,4 +2665,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_child(*(int(v) for v in sys.argv[2:5]),
+                               *sys.argv[5:8]))
     sys.exit(main())

@@ -39,7 +39,8 @@ bits on two calls. K8 (one kernel a ``DiaMatrix.spmv`` call, its windows
 staged from the matrix's plan) gives its plain version's bits on every
 banded shape, with n % 4 != 0, a strided vals view, an offset past any
 tile, 32 diagonals, negative offsets only and n = 1024, at every tile and
-with windows left in global memory.
+with windows left in global memory; and with halo strips (random, and the
+wrap strips of a one-rank ring, which must add exactly 0), in both bodies.
 """
 
 import functools
@@ -1193,6 +1194,61 @@ def test_dia_kernel_bits(cuda, name):
     _close(want, _oracle(c, x), 1e-3)
 
 
+@pytest.mark.parametrize("name", ["stencil2d", "stencil3d_27", "odd_n",
+                                  "asym", "full", "far", "sym_no_main"])
+def test_dia_kernel_strips_bits(cuda, name):
+    """K8 with halo strips gives ``dia_spmv_plain``'s bits: random strips
+    (x on both sides, the vals rows on the left when sym) and the wrap
+    strips of a ring of one rank (x's own edges, the vals strip zeroed),
+    with the matrix's plan and with every window left in global memory, in
+    the 16-byte body and the scalar body (vals row stride n + 13, or a
+    strip off 16 bytes). The wrap strips meet coefficients the packer
+    zeroed: the result is the one without strips, bit for bit."""
+    from tpusparse_torch.kernels.dia_spmv import (dia_plan, strip_width,
+                                                  vec_body)
+    c = _banded(name) if name in BANDED or name == "asym" \
+        else _banded_more(name)
+    f = DiaMatrix.from_csr(c, device=cuda)
+    n, k = f.shape[1], len(f.offsets)
+    hs = strip_width(f.offsets, f.sym)
+    assert fits(f.offsets, f.sym, n) and hs <= n
+    x = torch.from_numpy(generators.random_sparse_vector(n, 0.5, seed=22)) \
+        .to(cuda)
+    g = torch.Generator().manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(cuda)
+
+    strips = {"random": (rnd(hs), rnd(hs), rnd(k, hs) if f.sym else None),
+              "wrap": (x[-hs:].clone(), x[:hs].clone(),
+                       torch.zeros(k, hs, device=cuda) if f.sym else None)}
+    shifted = torch.zeros(hs + 1, device=cuda)[1:]     # off 16 bytes
+    plans = [f.plan, dia_plan(f.offsets, f.sym, 1024, 1000)]
+    big = torch.zeros((k, n + 13), device=cuda)
+    big[:, :n] = f.vals
+    views = [f.vals, big[:, :n]]
+    none = dia_spmv_plain(f.offsets, f.vals, x, sym=f.sym, n=n)
+    for label, (sl, sr, vs) in strips.items():
+        kw = dict(xstrip_l=sl, xstrip_r=sr, vstrip=vs)
+        want = dia_spmv_plain(f.offsets, f.vals, x, sym=f.sym, n=n, **kw)
+        if label == "wrap":
+            assert torch.equal(want, none)
+        for v in views:
+            for p in plans:
+                y = dia_spmv(f.offsets, v, x, sym=f.sym, n=n, plan=p, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(y, want), (label, p.tile, v.stride())
+        shifted.copy_(sl)
+        assert not vec_body(f.vals, x, n, shifted)
+        y = dia_spmv(f.offsets, f.vals, x, sym=f.sym, n=n,
+                     **dict(kw, xstrip_l=shifted))
+        torch.cuda.synchronize()
+        assert torch.equal(y, want), (label, "strip off 16 bytes")
+    before = dia_spmv.strip_launches
+    dia_spmv(f.offsets, f.vals, x, sym=f.sym, n=n)
+    assert dia_spmv.strip_launches == before
+
+
 def test_dia_public_call_one_launch(cuda):
     """``DiaMatrix.spmv`` launches K8 once a call, with no host sync, on
     the plan the matrix built once."""
@@ -1218,11 +1274,14 @@ def test_dia_public_call_one_launch(cuda):
 
 def test_sass_k8_copies(cuda):
     """K8 stages its windows by cp.async (LDGSTS): 16 bytes a copy in its
-    16-byte body (LDGSTS.E.BYPASS.128), 4 in its scalar body."""
+    16-byte body (LDGSTS.E.BYPASS.128), 4 in its scalar body; each body a
+    kernel with no strips and one with halo strips."""
     from tpusparse_torch.kernels import _build
     sass = _sass_by_function(_build.build())
-    dia = {k: v for k, v in sass.items() if "dia_tile_kernel" in k}
-    assert len(dia) == 2, sorted(sass)
+    dia = {k: v for k, v in sass.items()
+           if "dia_tile_kernel" in k or "dia_strip_kernel" in k}
+    assert len(dia) == 4, sorted(sass)
+    assert sum("dia_strip_kernel" in k for k in dia) == 2, sorted(dia)
     for name, text in dia.items():
         assert "LDGSTS" in text, name
         assert ("LDGSTS.E.BYPASS.128" in text) == ("ILb1E" in name), name

@@ -25,14 +25,17 @@ from tpusparse_torch.testing.tester import KernelEntry, SpmvTester
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the modules of the router's banded and block-structured routes and of
-# the training path, which the import rule must reach as well
+# the training path and of the parallel layer, which the import rule must
+# reach as well
 NEW_MODULES = ("formats.bsr", "formats.tcsr", "formats.dia",
                "kernels.bsr_spmv", "kernels.bsell_spmv", "kernels.dia_spmv",
                "autodiff", "nn", "prune", "graph", "kernels.sell_grad",
                "formats.ell", "formats.bell", "formats.binned",
                "kernels.bell_spmv", "kernels.sell_mxu_spmm", "bench.report",
                "bench.profile", "native", "formats.io", "entry", "reorder",
-               "solve", "eig", "amg")
+               "solve", "eig", "amg", "parallel", "parallel.mesh",
+               "parallel.comm", "parallel.launch", "parallel.partition",
+               "parallel.sparse", "parallel.dryrun", "bench.shard_overhead")
 JAX_TWIN = {"dense_torch": "dense_xla", "dense_cuda": "dense_pallas",
             "sell_cuda": "sell_pallas", "awsp_cuda": "awsp_pallas"}
 FULL_TWIN = {"ell_torch": "ell_xla", "bell_cuda": "bell_pallas",

@@ -58,11 +58,11 @@ router's banded path: n = 1,048,576, sym, offsets (0, 1, 1024)) and
 ``stencil27-104`` (HPCG's 27-point stencil on its 104^3 local grid,
 ``stencil_csr((104, 104, 104), points=27)``: n = 1,124,864, sym, 14 stored
 diagonals), each two ways: the public ``DiaMatrix.spmv`` call (the parent:
-its earlier wrapper, which copied the offsets into a ctypes array every
-call) and the bare kernel (both C entries called with everything made
-beforehand), beside cuSPARSE CSR and the shifted torch form
-(``DiaMatrix._shifted``, the counterpart of the JAX package's XLA path).
-``--points`` picks kernels (default K3,K5).
+the C entry from before halo strips, y made every call) and the bare
+kernel (both C entries called with everything made beforehand), beside
+cuSPARSE CSR and the shifted torch form (``DiaMatrix._shifted``, the
+counterpart of the JAX package's XLA path). ``--points`` picks kernels
+(default K3,K5).
 
 At each point it checks parent and new against each other (atol 1e-4),
 then times A, B, B, A with ``bench.runner``'s ``device_time`` (median of
@@ -147,8 +147,9 @@ PARENT_SIGNATURES = {
     # y, src, out, batch, ldy, n, device, stream
     "K5": {"tps_permute_columns": [_P] * 3 + [_I] * 4 + [_P],
            "tps_rsell_spmm": [_P] * 8 + [_I] * 5 + [_P]},
-    # offsets (host int32), vals, x, y, k, sym, n, ldv, device, stream
-    "K8": {"tps_dia_spmv": [_P] * 4 + [_I] * 5 + [_P]},
+    # before halo strips: plan (host int32), vals, x, y, nterms,
+    # nwin, tile, smem_bytes, vec, n, ldv, device, stream
+    "K8": {"tps_dia_spmv": [_P] * 4 + [_I] * 8 + [_P]},
 }
 ENTRIES = {"K1": "tps_sell_spmm", "K12": "tps_bell_spmm",
            "K2": "tps_dense_spmm", "K11": "tps_sell_mxu_spmm",
@@ -296,19 +297,17 @@ def parent_permute(so, y, src):
     return out
 
 
-def parent_dia(so, d: DiaMatrix, x, offs=None, y=None):
-    """The earlier K8: the offsets copied into a ctypes array and y made
-    every call, as its wrapper did (given ``offs`` and ``y``: the bare
-    kernel)."""
-    n = d.shape[1]
-    k = len(d.offsets)
-    if offs is None:
-        offs = (ctypes.c_int32 * k)(*d.offsets)
+def parent_dia(so, d: DiaMatrix, x, y=None):
+    """The K8 from before halo strips (no strip operands) through its C
+    entry, with the matrix's plan; y made every call, as its wrapper did (given
+    ``y``: the bare kernel)."""
+    p, n = d.plan, d.shape[1]
     if y is None:
         y = torch.empty(n, dtype=torch.float32, device=x.device)
     _check(so.tps_dia_spmv(
-        ctypes.addressof(offs), d.vals.data_ptr(), x.data_ptr(), y.data_ptr(),
-        k, int(d.sym), n, d.vals.stride(0), x.device.index,
+        ctypes.addressof(p.words), d.vals.data_ptr(), x.data_ptr(),
+        y.data_ptr(), len(p.terms), len(p.windows), p.tile, p.smem_bytes,
+        int(vec_body(d.vals, x, n)), n, d.vals.stride(0), x.device.index,
         _build.stream_of(x)), "parent K8")
     return y
 
@@ -318,10 +317,10 @@ def new_dia(d: DiaMatrix, x, y):
     beforehand."""
     p, n = d.plan, d.shape[1]
     _build.check(_build.lib().tps_dia_spmv(
-        ctypes.addressof(p.words), d.vals.data_ptr(), x.data_ptr(),
-        y.data_ptr(), len(p.terms), len(p.windows), p.tile, p.smem_bytes,
-        int(vec_body(d.vals, x, n)), n, d.vals.stride(0), x.device.index,
-        _build.stream_of(x)), "K8")
+        ctypes.addressof(p.words), d.vals.data_ptr(), x.data_ptr(), None,
+        None, None, y.data_ptr(), len(p.terms), len(p.windows), p.tile,
+        p.smem_bytes, int(vec_body(d.vals, x, n)), n, d.vals.stride(0), 0,
+        x.device.index, _build.stream_of(x)), "K8")
     return y
 
 
@@ -341,7 +340,6 @@ def dia_points(dev, parent):
         x = torch.from_numpy(generators.random_sparse_vector(n, 0.5, 0)) \
             .to(dev)
         nbytes = d.device_bytes() + 8 * n
-        offs = (ctypes.c_int32 * len(d.offsets))(*d.offsets)
         y_old, y_new = torch.empty_like(x), torch.empty_like(x)
         lib = (lambda at_csr=at_csr, x=x: at_csr @ x)
         yard = {"shifted": lambda d=d, x=x: d._shifted(x[None, :])[0]}
@@ -349,8 +347,8 @@ def dia_points(dev, parent):
                          lambda d=d, x=x: parent_dia(parent, d, x),
                          lambda d=d, x=x: d.spmv(x), lib, yard, nbytes))
         out.append(Point(f"K8 {name} kernel",
-                         lambda d=d, x=x, o=offs, y=y_old: parent_dia(
-                             parent, d, x, o, y),
+                         lambda d=d, x=x, y=y_old: parent_dia(
+                             parent, d, x, y),
                          lambda d=d, x=x, y=y_new: new_dia(d, x, y), lib, {},
                          nbytes))
     return out

@@ -31,7 +31,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from tpusparse_torch.bench.roofline import card_info, detect_hbm_gbps
+from tpusparse_torch.bench.roofline import (card_info, detect_hbm_gbps,
+                                            format_bytes)
 from tpusparse_torch.bench.runner import device_time
 from tpusparse_torch.formats.sell import SellMatrix
 from tpusparse_torch.kernels.dense import dense_torch
@@ -116,7 +117,7 @@ def floors(out=sys.stdout, loads: list[dict[str, Any]] | None = None,
                     lambda: dense_torch(wl["a_dev"], xt)).seconds,
                 "cusparse_ms": device_time(lambda: at_csr @ xt.T).seconds,
             }
-            nbytes = s.device_bytes() + 4 * 2 * b * SIZE      # + x and y
+            nbytes = format_bytes(s) + 4 * 2 * b * SIZE       # + x and y
             t_bytes = nbytes / hbm
             t_ops = 2 * nnz * b / (FP32_TFLOPS * 1e12)
             rows.append(dict(

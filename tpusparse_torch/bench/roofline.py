@@ -52,8 +52,9 @@ def card_info() -> dict[str, Any]:
 
 def format_bytes(fmt: Any) -> int:
     """Total device bytes a kernel must stream to read this format once:
-    ``read_bytes()`` where a format stores bytes no product needs (BELL's
-    zero pads and rank carries, RSELL's padded chunk slots), else
+    ``read_bytes()`` where a format stores bytes no product needs (the
+    zero slots of SELL, RSELL and TCSR's SELL tier, the zero blocks of BSR
+    and TCSR's dense tier, BELL's zero pads and rank carries), else
     ``device_bytes()``."""
     if isinstance(fmt, torch.Tensor):
         return fmt.numel() * fmt.element_size()

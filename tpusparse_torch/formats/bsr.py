@@ -189,6 +189,14 @@ class BsrMatrix:
         return self.blocks.numel() * self.blocks.element_size() + \
             self.bi.numel() * 8
 
+    def read_bytes(self) -> int:
+        """The bytes a product must read of the pack: the real blocks
+        (``n_real``, each stored whole, with its two int32 coordinates). The
+        zero blocks of canonicalization (a block for each empty output
+        group, long lists padded to 8 or 32) need not be read."""
+        return self.n_real * (self.block_m * _LANES *
+                              self.blocks.element_size() + 8)
+
     @property
     def block_density(self) -> float:
         """Fraction of (block_m x 128) tiles stored (before padding)."""

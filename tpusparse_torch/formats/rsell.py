@@ -14,7 +14,9 @@ carries the inverse permutation and its K5 plan, turned into one source
 lane per output column and its inverse (``Unpermute``); ``RsellMatrix``
 hands those to K4 (``kernels/rsell_spmv.py``), whose second kernel writes
 the output in the user's column order, so a product is K4 alone.
-``rsell_shard_pack`` (the multi-device packer) is not part of this port yet.
+``rsell_shard_pack`` packs one chunk stream a shard for the sharded maps
+(``parallel/sparse.py:rsell_spmm_sharded``), bit for bit the JAX
+package's ``RsellShards``.
 """
 
 from __future__ import annotations
@@ -307,3 +309,137 @@ class RsellMatrix:
     def spmm(self, x) -> torch.Tensor:
         """x: (b, m) -> Y = X @ A, (b, n)."""
         return self._run(as_input(x, self.device))
+
+
+class RsellShards:
+    """Host-packed (numpy) chunk streams, one a shard, and the output
+    placement: the JAX package's ``RsellShards``, array for array. A rank
+    of ``rsell_spmm_sharded`` uploads its own row of each array."""
+
+    def __init__(self, cj, ct, idx, vals, group_map, shape, padded, nnz,
+                 counts, w_shard, perm_plan=None, run: int = 1):
+        self.run = run                 # uniform pack run alignment
+        self.cj = cj                   # (D, Lmax) int32 local group
+        self.ct = ct                   # (D, Lmax) int32 window
+        self.idx = idx                 # (D, Lmax, 8, 128) int8
+        self.vals = vals               # (D, Lmax, 8, 128)
+        self.group_map = group_map     # (D, nb_loc) sorted group id or -1
+        self.shape = tuple(shape)
+        self.padded = tuple(padded)
+        self.nnz = nnz
+        self.counts = counts           # (D,) real chunks per shard
+        self.w_shard = w_shard         # (D,) max tile demand per shard
+        self.perm_plan = perm_plan     # column unpermute (None: in order)
+        # K5's source lane of each output column, over the shards' outputs
+        # in (shard, local column) order
+        self.perm_src = None if perm_plan is None else \
+            source_lanes(*perm_plan, self.shape[1])
+
+    @property
+    def n_shards(self) -> int:
+        return self.cj.shape[0]
+
+    @property
+    def balance(self) -> float:
+        """max/mean real-chunk load; 1.0 is perfectly balanced."""
+        mean = float(self.counts.mean()) or 1.0
+        return float(self.counts.max()) / mean
+
+    def __repr__(self) -> str:
+        c = self.counts
+        return (f"RsellShards(shape={self.shape}, nnz={self.nnz}, "
+                f"D={self.n_shards}, chunks/shard "
+                f"[{int(c.min())}..{int(c.max())}] mean {c.mean():.0f}, "
+                f"balance {self.balance:.2f}, "
+                f"w/shard [{int(self.w_shard.min())}.."
+                f"{int(self.w_shard.max())}])")
+
+
+def rsell_shard_pack(csr_or_dense, n_shards: int,
+                     assignment: str = "balance",
+                     sort: bool | str = "auto") -> RsellShards:
+    """Assign output COLUMNS to shards and pack each shard's own chunk
+    list, as the JAX package does (column, not group, granularity: a few
+    head columns in one group would cap a group-level balance).
+
+    ``assignment``:
+    - ``balance`` (default): deal the demand-ordered columns to the shards
+      in a serpentine, so that every shard's k-th local group holds a
+      similar demand mix;
+    - ``sorted``: contiguous demand-ordered ranges (shard 0 the densest);
+    - ``contiguous``: shard d takes columns [d*cps, (d+1)*cps) in their own
+      order, no sort and no output permutation (``perm_plan`` None).
+
+    No divisibility requirement: trailing shards take empty columns, and
+    the chunk lists pad with zero chunks to the longest. Every shard's
+    stream obeys ``check_plan_ids`` and the uniform run alignment."""
+    csr = csr_or_dense if isinstance(csr_or_dense, CsrMatrix) else \
+        CsrMatrix.from_dense(csr_or_dense)
+    m, n = csr.shape
+    mp, np_ = round_up(m, _LANES), round_up(n, _LANES)
+    if assignment == "contiguous":
+        sort = False
+    elif sort == "auto":
+        cw = col_window_widths(csr)
+        med = float(np.median(cw)) if cw.size else 0.0
+        sort = med > 0 and int(cw.max()) >= 1.5 * med
+    col_nnz = np.zeros(np_, dtype=np.int64)
+    col_nnz[:n] = csr.row_nnz
+    order = np.argsort(-col_nnz, kind="stable") if sort \
+        else np.arange(np_, dtype=np.int64)
+
+    nb = np_ // _LANES
+    nb_loc = -(-nb // n_shards)
+    cps = nb_loc * _LANES                        # columns per shard
+    total = n_shards * cps
+    assign = np.full((n_shards, cps), np_, dtype=np.int64)  # np_ == empty
+    if assignment == "balance":
+        k = np.arange(np_)
+        cyc = k % (2 * n_shards)                 # serpentine deal
+        d = np.where(cyc < n_shards, cyc, 2 * n_shards - 1 - cyc)
+        assign[d, k // n_shards] = order
+    elif assignment in ("sorted", "contiguous"):
+        padded = np.concatenate(
+            [order, np.full(total - np_, np_, dtype=np.int64)])
+        assign = padded.reshape(n_shards, cps)
+    else:
+        raise ValueError(f"unknown assignment {assignment!r}")
+
+    packs = [rsell_pack_csr(csr_rows_subset(csr, assign[d]), sort=False)
+             for d in range(n_shards)]
+    for p in packs:
+        check_plan_ids(*p["padded"])
+    counts = np.array([p["n_real"] for p in packs], dtype=np.int64)
+    w_shard = np.array([p["w_max"] for p in packs], dtype=np.int64)
+    # one run flag for every shard: run-aligned only where every shard's
+    # pack aligned (an aligned pack is still right under the flat body)
+    run = _RUN if all(p["run"] == _RUN for p in packs) else 1
+    lmax = max(int(max(p["cj"].shape[0] for p in packs)), 1)
+    if run > 1:
+        lmax = -(-lmax // _RUN) * _RUN
+    cj_s = np.zeros((n_shards, lmax), np.int32)
+    ct_s = np.zeros((n_shards, lmax), np.int32)
+    idx_s = np.zeros((n_shards, lmax, _SUB, _LANES), np.int8)
+    val_s = np.zeros((n_shards, lmax, _SUB, _LANES), csr.values.dtype)
+    for d, p in enumerate(packs):
+        k = p["cj"].shape[0]
+        cj_s[d, :k] = p["cj"]
+        ct_s[d, :k] = p["ct"]
+        idx_s[d, :k] = p["idx"]
+        val_s[d, :k] = p["vals"]
+
+    # one column-granular unpermute: original column c sits at flat output
+    # lane d * cps + slot where assign[d, slot] == c
+    if assignment == "contiguous":
+        perm_plan = None
+    else:
+        flat = assign.ravel()
+        real = flat < np_
+        pos_of = np.empty(np_ + 1, dtype=np.int64)
+        pos_of[flat[real]] = np.flatnonzero(real)
+        pp = permute_plan(pos_of[:n], src_size=total)
+        perm_plan = (pp["oidx"], pp["oh"])
+    group_map = (assign[:, ::_LANES] // _LANES).astype(np.int32)  # info only
+    return RsellShards(cj_s, ct_s, idx_s, val_s, group_map,
+                       (m, n), (mp, np_), int(csr.nnz), counts, w_shard,
+                       perm_plan=perm_plan, run=run)

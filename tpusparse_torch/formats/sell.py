@@ -252,6 +252,15 @@ class SellMatrix:
             total += self.scales.numel() * 4
         return total
 
+    def read_bytes(self) -> int:
+        """The bytes a product must read of the pack: the live values with
+        their one-byte indices (and the scales of int8 storage). The zero
+        pad slots up to each window's width W need not be read."""
+        total = self.nnz * (self.vals.element_size() + 1)
+        if self.scales is not None:
+            total += self.scales.numel() * 4
+        return total
+
     def to_dense(self) -> torch.Tensor:
         """Dense A on the host; int8 storage dequantizes to fp32."""
         idx, vals = self.idx.cpu(), self.vals.cpu()

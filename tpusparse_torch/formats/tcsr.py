@@ -197,6 +197,7 @@ class TcsrMatrix:
         self.nnz = nnz
         self.n_sell = n_sell           # real tiles of each tier
         self.n_dense = n_dense
+        self._live: int | None = None  # SELL-tier nonzeros, counted once
         dev = self.device
         # K7's work plans, built once from the host copy of s_bj
         self._work = None if dev.type != "cuda" or not vals.shape[0] else \
@@ -246,6 +247,19 @@ class TcsrMatrix:
             self.s_bi.numel() * 8
         if self.bsr is not None:
             total += self.bsr.device_bytes()
+        return int(total)
+
+    def read_bytes(self) -> int:
+        """The bytes a product must read of the pack: the SELL tier's live
+        values with their one-byte indices and the coordinates of its real
+        tiles, and the dense tier's ``read_bytes``. Zero slots, zero tiles
+        and pad tiles need not be read."""
+        if self._live is None:
+            self._live = int(torch.count_nonzero(self.vals))
+        total = self._live * (self.vals.element_size() + 1) + \
+            self.n_sell * 8
+        if self.bsr is not None:
+            total += self.bsr.read_bytes()
         return int(total)
 
     def to_dense(self) -> torch.Tensor:

@@ -62,9 +62,9 @@ _SIGNATURES = {
     # items, gptr, bi, idx, vals, x, part, y, nitems, w, batch, ldx, n,
     # device, stream
     "tps_bsell_spmm": [_P] * 8 + [_I] * 6 + [_P],
-    # plan (host int32), vals, x, y, nterms, nwin, tile, smem_bytes, vec, n,
-    # ldv, device, stream
-    "tps_dia_spmv": [_P] * 4 + [_I] * 8 + [_P],
+    # plan (host int32), vals, x, xl, xr, vl, y, nterms, nwin, tile,
+    # smem_bytes, vec, n, ldv, hs, device, stream
+    "tps_dia_spmv": [_P] * 7 + [_I] * 9 + [_P],
     # idx_signed, x, g, out, nb, nt, w, batch, ldx, ldg, device, stream
     "tps_sell_dvals": [_P] * 4 + [_I] * 7 + [_P],
     # bitmap, vals, x, part, y, counters, nb, mb, block_m, w, batch, ldx,

@@ -5,13 +5,19 @@
 ``y[p] = sum_i vals[i, p] * x[p + d_i]``, plus ``vals[i, p - d_i] *
 x[p - d_i]`` for every ``d_i > 0`` when ``sym`` (the mirror of a bitwise-
 symmetric operator stored as its ``d >= 0`` diagonals only); reads outside
-``[0, n)`` are 0. One vector, a square operator.
+``[0, n)`` come from the halo strips below, or are 0. One vector, a square
+operator.
 
-The TPU kernel's halo strips (``xstrip_l``, ``xstrip_r``, ``vstrip``) carry
-a neighbour's edge in the sharded partition and are zero on one device, so
-they are not an input here; its block sizing (``_pick_rows``) is a VMEM
-budget. ``halo_rows`` and ``fits`` are kept verbatim, so that ``DiaMatrix``
-picks the kernel exactly where the JAX package does.
+The TPU kernel's halo strips are inputs here too: ``xstrip_l`` (the
+``hs = halo_rows(offsets, sym) * 128`` x values before position 0),
+``xstrip_r`` (the hs after position n) and ``vstrip`` (``(k, hs)``, each vals
+row's hs values before 0, read by a sym operator's mirrors). The sharded
+halo partition (``parallel/sparse.py:dia_spmm_sharded``) passes a
+neighbour's edges there; a strip left out reads as zeros, the one-device
+case, with the same bits as before strips were an input. Its block sizing
+(``_pick_rows``) is a VMEM budget; the sharded partition keeps a copy for
+its slab width only. ``halo_rows`` and ``fits`` are kept verbatim, so that
+``DiaMatrix`` picks the kernel exactly where the JAX package does.
 
 The TPU kernel loads a block's x slab and halo once and forms every shifted
 window from it. The CUDA kernel stages windows in shared memory instead:
@@ -186,41 +192,93 @@ def _plan_of(offsets: tuple, sym: bool) -> DiaPlan:
     return dia_plan(offsets, sym)
 
 
-def vec_body(vals: torch.Tensor, x: torch.Tensor, n: int) -> bool:
+def strip_width(offsets, sym: bool) -> int:
+    """hs: the length of each halo strip, ``halo_rows * 128`` positions."""
+    return halo_rows(offsets, sym) * _LANES
+
+
+def check_reach(plan: DiaPlan, hs: int) -> None:
+    """Raise unless every read of the plan lies within ``hs`` of [0, n):
+    each staged window starts at or after -hs, and each term reads x at
+    p + e with -hs <= e < hs and its vals row at p + s with s >= -hs. Then
+    the strips hold every position an output in [0, n) reads outside it
+    (the kernel reads positions further out as zeros; only outputs past n
+    reach them)."""
+    lo = min([w[1] for w in plan.windows]
+             + [min(t[0], t[1]) for t in plan.terms])
+    hi = max(t[0] for t in plan.terms)
+    if lo < -hs or hi >= hs:
+        raise ValueError(f"dia_spmv: the plan reads [{lo}, n + {hi}], past "
+                         f"the {hs}-wide halo strips")
+
+
+def _strips(offsets, sym: bool, xstrip_l, xstrip_r, vstrip, dev):
+    """The three strips checked (None stays None), and hs."""
+    hs = strip_width(offsets, sym)
+    for name, t, shape in (("xstrip_l", xstrip_l, (hs,)),
+                           ("xstrip_r", xstrip_r, (hs,)),
+                           ("vstrip", vstrip, (len(offsets), hs))):
+        if t is None:
+            continue
+        if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"dia_spmv: {name} must be contiguous fp32 "
+                             f"{shape} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    return hs
+
+
+def vec_body(vals: torch.Tensor, x: torch.Tensor, n: int,
+             *strips: torch.Tensor | None) -> bool:
     """True where K8's 16-byte copies apply: n and the vals row stride
-    multiples of 4, vals and x 16-byte aligned; else its scalar body."""
+    multiples of 4, vals, x and every strip 16-byte aligned; else its scalar
+    body."""
     return (n % 4 == 0 and vals.stride(0) % 4 == 0
-            and vals.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
+            and all(t.data_ptr() % 16 == 0
+                    for t in (vals, x, *strips) if t is not None))
 
 
 def dia_spmv_plain(offsets, vals: torch.Tensor, x: torch.Tensor, *,
-                   sym: bool, n: int) -> torch.Tensor:
+                   sym: bool, n: int, xstrip_l: torch.Tensor | None = None,
+                   xstrip_r: torch.Tensor | None = None,
+                   vstrip: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of K8 on any device: for each position p, the
     same fp32 products added in the kernel's order (diagonal i, then its
-    mirror), reads outside [0, n) masked to 0. vals (k, >= n), x (n,)."""
+    mirror). x is read through its strips outside [0, n) (``xstrip_l[hs +
+    q]`` for q < 0, ``xstrip_r[q - n]`` for q >= n), a vals row at q < 0
+    through ``vstrip[i, hs + q]``; a strip left out is zeros. vals (k, >= n),
+    x (n,)."""
+    hs = strip_width(offsets, sym)
+    z = x.new_zeros(hs)
+    xe = torch.cat([z if xstrip_l is None else xstrip_l.float(), x[:n],
+                    z if xstrip_r is None else xstrip_r.float()])
     p = torch.arange(n, device=x.device)
     acc = torch.zeros(n, dtype=torch.float32, device=x.device)
     for i, d in enumerate(offsets):
-        v = vals[i, :n].float()
-        q = p + d
-        ok = (q >= 0) & (q < n)
-        acc = acc + v * torch.where(ok, x[q.clamp(0, max(n - 1, 0))], 0.0)
+        acc = acc + vals[i, :n].float() * xe[hs + p + d]
         if sym and d > 0:
-            r = p - d
-            okr = r >= 0
-            rc = r.clamp(min=0)
-            acc = acc + torch.where(okr, vals[i, rc].float() * x[rc], 0.0)
+            vl = z if vstrip is None else vstrip[i].float()
+            ve = torch.cat([vl, vals[i, :n].float()])
+            acc = acc + ve[hs + p - d] * xe[hs + p - d]
     return acc
 
 
 def dia_spmv(offsets, vals: torch.Tensor, x: torch.Tensor, *, sym: bool,
-             n: int, plan: DiaPlan | None = None) -> torch.Tensor:
+             n: int, plan: DiaPlan | None = None,
+             xstrip_l: torch.Tensor | None = None,
+             xstrip_r: torch.Tensor | None = None,
+             vstrip: torch.Tensor | None = None) -> torch.Tensor:
     """K8: offsets (k static ints, 0 < k <= 32), vals (k, >= n) fp32 (its
     rows may be a strided view, row stride >= n), x (n,) fp32 -> y (n,)
     fp32. ``plan``: ``dia_plan(offsets, sym)``; when None, the one built at
-    the first call for these offsets (a ``DiaMatrix`` keeps its own)."""
+    the first call for these offsets (a ``DiaMatrix`` keeps its own).
+    ``xstrip_l``, ``xstrip_r`` (hs,) and ``vstrip`` (k, hs) fp32, hs =
+    ``strip_width(offsets, sym)``: the x values before 0 and from n, and the
+    vals rows' values before 0 (None: zeros)."""
     if x.device.type == "cpu":
-        return dia_spmv_plain(offsets, vals, x, sym=sym, n=n)
+        return dia_spmv_plain(offsets, vals, x, sym=sym, n=n,
+                              xstrip_l=xstrip_l, xstrip_r=xstrip_r,
+                              vstrip=vstrip)
     k = len(offsets)
     if not 0 < k <= _MAX_OFFSETS:
         raise ValueError(f"dia_spmv: {k} diagonals, the kernel takes 1 to "
@@ -237,17 +295,26 @@ def dia_spmv(offsets, vals: torch.Tensor, x: torch.Tensor, *, sym: bool,
     dev = _build.require_cuda("dia_spmv", x)
     if vals.device != dev:
         raise ValueError(f"dia_spmv: vals on {vals.device}, x on {dev}")
+    strips = (xstrip_l, xstrip_r, vstrip)
+    hs = _strips(offsets, sym, *strips, dev)
     if plan is None:
         plan = _plan_of(tuple(int(d) for d in offsets), bool(sym))
+    if any(t is not None for t in strips):
+        check_reach(plan, hs)
+    else:
+        hs = 0                      # no strip: every read outside is zero
     y = torch.empty(n, dtype=torch.float32, device=dev)
     rc = _build.lib().tps_dia_spmv(
         ctypes.addressof(plan.words), vals.data_ptr(), x.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in strips),
         y.data_ptr(), len(plan.terms), len(plan.windows), plan.tile,
-        plan.smem_bytes, int(vec_body(vals, x, n)), n, vals.stride(0),
-        dev.index, _build.stream_of(x))
+        plan.smem_bytes, int(vec_body(vals, x, n, *strips)), n,
+        vals.stride(0), hs, dev.index, _build.stream_of(x))
     _build.check(rc, "dia_spmv")
     dia_spmv.launches += 1
+    dia_spmv.strip_launches += any(t is not None for t in strips)
     return y
 
 
 dia_spmv.launches = 0
+dia_spmv.strip_launches = 0    # calls given at least one strip

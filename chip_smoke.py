@@ -198,7 +198,31 @@ the Laplacian and the 27-point stencil; SpMM cases at B = 8):
     on the card, K8's strip body is timed on a slab, and
     ``bench.shard_overhead`` times the sharded call at world size 1
     against the unsharded one (SELL, DIA, TCSR). Every sharded kernel's
-    row gets ``sharded_launches``, K8's row ``strip_body``.
+    row gets ``sharded_launches``, K8's row ``strip_body``;
+
+and then, in the same world of one rank, sharded training and AMG:
+
+18. (a) ``trainable_linear_sharded`` on the headline matrix (4096^2,
+    d = 0.5): a forward and backward at B = 1 and 8 against phase 11's
+    unsharded ``trainable_linear`` (y, dx, ``dvals``, ``dvals_t``: the
+    same bits expected, 1e-5 the limit; whether the bits held is
+    printed), y and dx within 1e-3 of the float64 oracle, each step K1
+    twice and K10 twice (counted); two SGD steps on the weights and the
+    activations with a falling loss; ``resync`` giving the unsharded
+    re-tie's bits; (b) the grid hierarchy of the 1M-unknown Laplacian
+    placed with ``shard(mesh)``: its DIA levels through the halo
+    partition (K8's strip kernel counted), CG in the unsharded hierarchy's
+    iterations, z within 1e-5 of its z, the float64 residual <= 1e-3;
+    (c) ``smoothed_aggregation(lap, mesh=mesh)``: every level but the
+    dense coarsest a ragged-SELL shard (``"rsell-shard"``, K4 counted),
+    CG in phase 16's iterations with a residual within max(2 x phase 16's,
+    1e-5); (d) phase 17c's two gloo children then run the train step at
+    the headline (B = 8) and both AMG cases at the dry run's small sizes:
+    both ranks the same bits, world 1's AMG iterations, a falling loss,
+    K1, K10 and K4 launched. After the children end, the sharded step
+    (fwd + bwd) is timed beside the unsharded one, and each AMG's V-cycle
+    beside its unsharded one (phase 16's hierarchy for greedy), in turns. Phase 18's launches
+    of K1, K4, K8 and K10 join their rows (``phase18_launches``).
 
 Kernel against plain version: atol 1e-4 (the same products summed in
 another order); against the float64 oracle: atol 1e-3 (the repo's
@@ -1065,10 +1089,10 @@ def slots_to_dense(s, v, m, n):
 
 def training_path(csr, a, dev):
     """Phase 11, first half: trainable_linear's backward at B = 1 and 8,
-    counted. Returns (apply, params, K10 launches)."""
+    counted. Returns (apply, params, K10 launches, resync)."""
     m, n = csr.shape
     t0 = time.perf_counter()
-    apply, params, masks, _ = trainable_linear(csr)        # device=None: GPU
+    apply, params, masks, resync = trainable_linear(csr)   # device=None: GPU
     torch.cuda.synchronize()
     st = apply.statics
     print(f"-- training path: trainable_linear({m}x{n}, nnz {csr.nnz}): "
@@ -1112,7 +1136,7 @@ def training_path(csr, a, dev):
               f"gradients {pads}")
         require(max(e_dx, e_v, e_vt) <= ATOL and pads == 0,
                 f"B={batch}: gradients disagree with the oracle")
-    return apply, params, k10
+    return apply, params, k10, resync
 
 
 def training_run(csr, dev) -> int:
@@ -1973,6 +1997,7 @@ def solver_amg(host, sp, bt, b, dev, phase: dict) -> dict:
         cpu_s = time.perf_counter() - t0
         dv = rel(vc, amg(bt).cpu())
     require(dv <= 1e-4, f"CPU V-cycle {dv:.3e} from the card's")
+    phase["_amg"] = amg              # phase 18 times its V-cycle again
     phase["amg"] = {
         "repr": repr(amg), "host_setup_s": phase["amg_host_setup_s"],
         "pack_upload_s": pack_s, "vcycle_us": cyc_ms * 1e3,
@@ -2074,7 +2099,8 @@ def solver_path(csr, d: DiaMatrix, dev) -> dict:
     print("launches on the solver path:", json.dumps(c),
           f"; phase 16 took {phase['seconds']:.1f} s")
     print(json.dumps({"solver_path": {k: v for k, v in phase.items()
-                                      if k != "held"}}, default=str))
+                                      if k not in ("held", "_amg")}},
+                     default=str))
     return phase
 
 
@@ -2387,20 +2413,35 @@ def sharded_child(rank: int, world: int, port: int, out_dir: str,
                  tol=SOLVER_TOL)
     t_cg = time.perf_counter() - t1
     res["cg_z"] = z.cpu().numpy()
+    t2 = time.perf_counter()              # 18d: the train step, both AMGs
+    p18_zero()
+    solved = dryrun.solver_cases(p18_child_operands(ops, world), mesh)
+    sync(dev)
+    c18 = p18_read()
+    levels = [solved.pop(k) for k in ("grid_levels", "greedy_levels")]
+    for k in ("train_vals", "train_vals_t", "train_drift"):
+        solved.pop(k)
+    res.update({f"p18:{k}": np.asarray(v) for k, v in solved.items()})
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump({"rank": rank, "device": str(dev), "counts": counts,
                    "transport": comm.transport(mesh.get_group("n"), dev),
                    "cg_iters": int(info["iters"]), "cg_s": t_cg,
-                   "pack_s": t_pack, "s": time.perf_counter() - t0}, f)
+                   "pack_s": t_pack, "p18_counts": c18,
+                   "p18_levels": levels, "p18_s": time.perf_counter() - t2,
+                   "s": time.perf_counter() - t0}, f)
     torch.distributed.destroy_process_group()
     return 0
 
 
-def join_children(procs, out_dir, world1: dict, cg_ref) -> dict:
+def join_children(procs, out_dir, world1: dict, cg_ref,
+                  p18_ref: dict) -> dict:
     """17c's check: every child ended well; its cases within 1e-3 of the
     oracle and 1e-4 of world 1's; both ranks the same y; the sharded CG
-    took the unsharded K8 CG's iterations and gave its bits."""
+    took the unsharded K8 CG's iterations and gave its bits. 18d's: the
+    train step and both AMG solves the same bits on both ranks, each AMG
+    in world 1's iterations (``p18_ref``), the loss falling, and K1, K10
+    and K4 launched."""
     import os
 
     from tpusparse_torch.parallel import dryrun
@@ -2445,6 +2486,29 @@ def join_children(procs, out_dir, world1: dict, cg_ref) -> dict:
                 and np.array_equal(ranks[r]["cg_z"], z_ref),
                 f"sharded CG on rank {r}: {inf['cg_iters']} iterations "
                 f"against the unsharded K8 CG's {iters_ref}, or other bits")
+    for k in ranks[0]:
+        if k.startswith("p18:"):
+            for r in range(1, CHILD_WORLD):
+                require(np.array_equal(ranks[r][k], ranks[0][k]),
+                        f"18d: {k} differs on rank {r}")
+    loss = ranks[0]["p18:train_loss"]
+    iters18 = {k: int(ranks[0][f"p18:{k}"])
+               for k in ("grid_iters", "greedy_iters")}
+    require(iters18 == {k: p18_ref[k] for k in iters18},
+            f"18d: AMG iterations {iters18}, world 1 took "
+            f"{ {k: p18_ref[k] for k in iters18} }")
+    require(loss[1] < loss[0], f"18d: the loss did not fall: {loss}")
+    for r, inf in enumerate(info):
+        c = inf["p18_counts"]
+        require(c["sell_spmv"] > 0 and c["sell_grad"] > 0
+                and c["rsell_spmv"] > 0, f"18d rank {r}: launches {c}")
+    print(f"-- phase 18d: the same {CHILD_WORLD} gloo ranks: the train "
+          f"step at the headline, B = 8 (losses {loss.tolist()}), and both "
+          f"AMG solves at the dry run's small sizes (levels "
+          f"{info[0]['p18_levels']}; iterations {iters18}, world 1's): "
+          f"the same bits on both ranks; launches "
+          f"{json.dumps([i['p18_counts'] for i in info])}; ranks took "
+          f"{[round(i['p18_s'], 1) for i in info]} s")
     print(f"-- phase 17c: a world of {CHILD_WORLD} ranks on this card, "
           f"transport: {info[0]['transport']}; {len(errs)} cases within "
           f"{ATOL} of the oracle (worst "
@@ -2459,9 +2523,11 @@ def join_children(procs, out_dir, world1: dict, cg_ref) -> dict:
     return {"errs": errs, "ranks": info}
 
 
-def sharded_path(d_lap: DiaMatrix, dev, size: str = "full") -> dict:
+def sharded_path(d_lap: DiaMatrix, dev, size: str = "full",
+                 solver: dict | None = None, train=None) -> dict:
     """Phase 17: the sharded serving path (``tpusparse_torch.parallel``) on
-    ``dryrun``'s ``size`` operands."""
+    ``dryrun``'s ``size`` operands; then phase 18 (sharded training and
+    AMG) in the same world of one rank, its 18d riding 17c's children."""
     import tempfile
 
     from tpusparse_torch.bench import shard_overhead
@@ -2484,8 +2550,13 @@ def sharded_path(d_lap: DiaMatrix, dev, size: str = "full") -> dict:
             b = torch.from_numpy(generators.random_sparse_vector(
                 d_lap.shape[0], 0.5, 0)).to(dev)
             z, info = cg(d_lap, b, tol=SOLVER_TOL)
+            t18 = time.perf_counter()
+            p18 = phase18(mesh, d_lap, solver, train, dev)
+            p18_ref = p18_child_reference(mesh, ops)
+            t18 = time.perf_counter() - t18
             c2 = join_children(procs, out_dir, {"ops": ops, "y": y1},
-                               (z.cpu().numpy(), int(info["iters"])))
+                               (z.cpu().numpy(), int(info["iters"])),
+                               p18_ref)
         finally:
             for p in procs:
                 if p.poll() is None:
@@ -2502,14 +2573,293 @@ def sharded_path(d_lap: DiaMatrix, dev, size: str = "full") -> dict:
               f"{over[k]['sharded_call_us']:.1f} / "
               f"{over[k]['unsharded_call_us']:.1f} us = "
               f"{over[k]['call_ratio']:.2f})" for k in ("sell", "dia", "tcsr")))
+    t0 = time.perf_counter()
+    p18["times"] = phase18_times(p18.pop("timed"), solver, card)
+    p18["seconds"] = t18 + time.perf_counter() - t0
+    print(f"   phase 18 took {p18['seconds']:.1f} s (18d in 17c's children)")
     phase = {"world1_launches": c1, "world2": c2["ranks"],
              "cg_iters": int(info["iters"]), "strip_body": strip_row,
              "shard_overhead": over,
-             "seconds": time.perf_counter() - t_phase}
+             "seconds": time.perf_counter() - t_phase - p18["seconds"]}
     print(f"   phase 17 took {phase['seconds']:.1f} s")
     print(json.dumps({"sharded_path": phase}))
+    print(json.dumps({"phase18": p18}))
+    phase["phase18"] = p18
     torch.distributed.destroy_process_group()
     return phase
+
+
+# -- phase 18: sharded training and AMG -----------------------------------
+
+P18_WRAPPERS = {"sell_spmv": sell_spmm, "sell_grad": sell_dvals,
+                "rsell_spmv": rsell_spmm, "dia_spmv": dia_spmv}
+P18_LIMIT = 1e-5       # sharded at world 1 against unsharded (bits expected)
+
+
+def p18_zero() -> None:
+    for w in P18_WRAPPERS.values():
+        w.launches = 0
+    dia_spmv.strip_launches = 0
+
+
+def p18_read() -> dict[str, int]:
+    out = {name: w.launches for name, w in P18_WRAPPERS.items()}
+    out["dia_strips"] = dia_spmv.strip_launches
+    return out
+
+
+def p18_counted(launches: dict, fn):
+    """Run ``fn`` with phase 18's counters at 0; add its launches to
+    ``launches`` and to TOTALS; return its result and those launches."""
+    torch.cuda.synchronize()
+    p18_zero()
+    out = fn()
+    torch.cuda.synchronize()
+    c = p18_read()
+    tally({k: v for k, v in c.items() if k in ALL_WRAPPERS})
+    for k, v in c.items():
+        launches[k] = launches.get(k, 0) + v
+    return out, c
+
+
+def p18_child_operands(ops: dict, world: int) -> dict:
+    """18d's operands: both AMG cases at the dry run's small sizes, the
+    train step at the headline with B = 8 (the full list's ``a``, ``xb``)."""
+    from tpusparse_torch.parallel import dryrun
+
+    sops = dryrun.solver_operands("small", dryrun.operands("small", world))
+    sops.update(a_train=ops["a"], x_train=ops["xb"])
+    return sops
+
+
+def p18_child_reference(mesh, ops: dict) -> dict:
+    """18d's cases at world 1 (this process), for their AMG iterations."""
+    from tpusparse_torch.parallel import dryrun
+
+    got = dryrun.solver_cases(p18_child_operands(ops, CHILD_WORLD), mesh,
+                              train=False)
+    return {k: int(got[k]) for k in ("grid_iters", "greedy_iters")}
+
+
+def _fwd_bwd(apply, params, x, g):
+    y = apply(params, x)
+    y.backward(g)
+    return y.detach()
+
+
+def p18_training(mesh, train, dev, launches: dict) -> tuple[dict, dict]:
+    """18a: ``trainable_linear_sharded`` at world 1 over NCCL on the
+    headline matrix, against phase 11's unsharded ``trainable_linear``."""
+    from tpusparse_torch import trainable_linear_sharded
+    from tpusparse_torch.parallel import dryrun
+
+    csr, a, apply1, params1, resync1 = train
+    m, n = csr.shape
+    t0 = time.perf_counter()
+    aps, ps, masks, resyncs = trainable_linear_sharded(csr, mesh)
+    torch.cuda.synchronize()
+    rec = {"twin_pack_s": time.perf_counter() - t0, "by_batch": {}}
+    require(all(ps[k].shape == params1[k].shape
+                and int(masks[k].sum()) == csr.nnz for k in ps),
+            "18a: at one rank the shards are the whole twin layouts")
+    a64 = torch.from_numpy(a).to(dev).double()
+    for batch in BATCHES:
+        x = generators.random_sparse_batch(batch, m, 0.5, seed=batch)
+        g = np.random.default_rng(batch).uniform(-1, 1, (batch, n)) \
+            .astype(np.float32)
+        if batch == 1:
+            x, g = x[0], g[0]
+        xs, x1 = (torch.from_numpy(x).to(dev).requires_grad_()
+                  for _ in range(2))
+        gt = torch.from_numpy(g).to(dev)
+        for p in (*ps.values(), *params1.values()):
+            p.grad = None
+        y, c = p18_counted(launches, lambda: _fwd_bwd(aps, ps, xs, gt))
+        require(c["sell_spmv"] == 2 and c["sell_grad"] == 2,
+                f"18a B={batch}: K1 x2 and K10 x2 expected, got {c}")
+        y1 = _fwd_bwd(apply1, params1, x1, gt)
+        pairs = {"y": (y, y1), "dx": (xs.grad, x1.grad),
+                 "dvals": (ps["vals"].grad, params1["vals"].grad),
+                 "dvals_t": (ps["vals_t"].grad, params1["vals_t"].grad)}
+        diff = {k: float((u - v).abs().max()) for k, (u, v) in pairs.items()}
+        bits = all(torch.equal(u, v) for u, v in pairs.values())
+        x64 = xs.detach().double().reshape(-1, m)
+        g64 = gt.double().reshape(-1, n)
+        e_y = max_err(y.reshape(-1, n), x64 @ a64)
+        e_dx = max_err(xs.grad.reshape(-1, m), g64 @ a64.T)
+        require(max(diff.values()) <= P18_LIMIT,
+                f"18a B={batch}: sharded against unsharded {diff}")
+        require(max(e_y, e_dx) <= ATOL,
+                f"18a B={batch}: |y-oracle| {e_y:.3e} |dx-oracle| {e_dx:.3e}")
+        rec["by_batch"][str(batch)] = {"bits": bits, "diff": diff,
+                                       "y_oracle": e_y, "dx_oracle": e_dx,
+                                       "launches": c}
+        print(f"   18a B={batch}: sharded vs unsharded y, dx, dvals, dvals_t "
+              f"{'the same bits' if bits else json.dumps(diff)}; |y-oracle| "
+              f"{e_y:.2e}, |dx-oracle| {e_dx:.2e}; launches {json.dumps(c)}")
+    # two SGD steps on the weights and the activations (the dry run's)
+    x = torch.from_numpy(generators.random_sparse_batch(8, m, 0.5, seed=21)) \
+        .to(dev)
+    losses = []
+    for _ in range(2):
+        xr = x.clone().requires_grad_()
+
+        def step():
+            loss = (aps(ps, xr) ** 2).sum() / n
+            loss.backward()
+            return loss.detach()
+
+        loss, c = p18_counted(launches, step)
+        require(c["sell_spmv"] == 2 and c["sell_grad"] == 2,
+                f"18a step: K1 x2 and K10 x2 expected, got {c}")
+        with torch.no_grad():
+            for p in ps.values():
+                p -= dryrun.TRAIN_LR * p.grad
+                p.grad = None
+            x = x - dryrun.X_LR * xr.grad
+        losses.append(float(loss))
+    require(losses[1] < losses[0], f"18a: the loss did not fall: {losses}")
+    before = ps["vals_t"].detach().clone()
+    resyncs(ps)
+    tied = {"vals": ps["vals"], "vals_t": before.clone()}
+    resync1(tied)                  # the unsharded re-tie of the same vals
+    exact = torch.equal(ps["vals_t"], tied["vals_t"])
+    require(exact, "18a: the sharded resync is not the unsharded re-tie")
+    rec.update(losses=losses, resync_exact=exact,
+               drift=float((before - ps["vals_t"].detach()).abs().max()))
+    print(f"-- phase 18a: trainable_linear_sharded at world 1 (NCCL), "
+          f"{m}x{n}: twin pack + shards {rec['twin_pack_s']:.1f} s; SGD "
+          f"losses {losses}; resync exact, drift before it {rec['drift']}")
+    return rec, {"aps": aps, "ps": ps, "apply1": apply1, "params1": params1,
+                 "m": m, "n": n}
+
+
+def p18_amg(mesh, d_lap: DiaMatrix, solver: dict, dev,
+            launches: dict) -> tuple[dict, dict]:
+    """18b and 18c: grid AMG placed with ``shard`` and greedy AMG built
+    with ``mesh=``, at world 1 on the 1M-unknown Laplacian, against the
+    unsharded builds (phase 16's for greedy)."""
+    from tpusparse_torch.amg import smoothed_aggregation
+
+    lap = generators.stencil_csr(STENCIL)
+    sp = lap.to_scipy().tocsr().astype(np.float64)
+    b = generators.random_sparse_vector(lap.shape[0], 0.5, 0)   # phase 16's
+    bt = torch.from_numpy(b).to(dev)
+    t0 = time.perf_counter()
+    grid0 = smoothed_aggregation(lap, aggregation="grid", device=dev)
+    grid = grid0.shard(mesh)
+    torch.cuda.synchronize()
+    setup_b = time.perf_counter() - t0
+    ops_b = [type(lv.a).__name__ for lv in grid.levels]
+    require(ops_b[0] == "_HaloDia", f"18b: level 0 is {ops_b[0]}")
+    z0, i0 = grid0.solve(bt, tol=SOLVER_TOL)
+    (z, info), c = p18_counted(launches,
+                               lambda: grid.solve(bt, tol=SOLVER_TOL))
+    dz = max_err(z, z0)
+    res = residual64(sp, z, b)
+    require(c["dia_strips"] > 0 and c["dia_spmv"] > 0,
+            f"18b: K8's strip kernel did not run: {c}")
+    require(int(info["iters"]) == int(i0["iters"]) and dz <= P18_LIMIT
+            and res <= ATOL, f"18b: {info['iters']} iterations against "
+            f"{i0['iters']}, |z-z0| {dz:.3e}, residual {res:.3e}")
+    rec_b = {"levels": repr(grid0), "ops": ops_b, "setup_s": setup_b,
+             "iters": int(info["iters"]), "dz": dz, "bits": bool(
+                 torch.equal(z, z0)), "residual64": res, "launches": c}
+    print(f"-- phase 18b: grid AMG placed with shard(mesh) at world 1: "
+          f"{ops_b}; CG {info['iters']} iterations (unsharded "
+          f"{i0['iters']}), |z-z0| {dz:.2e}, residual {res:.2e}; setup "
+          f"{setup_b:.1f} s; launches {json.dumps(c)}")
+    t0 = time.perf_counter()
+    greedy = smoothed_aggregation(lap, mesh=mesh)
+    torch.cuda.synchronize()
+    setup_c = time.perf_counter() - t0
+    fmts = [lv.fmt for lv in greedy.levels]
+    require(all(f == "rsell-shard" for f in fmts[:-1]),
+            f"18c: levels {fmts}")
+    (zg, ig), c = p18_counted(launches,
+                              lambda: greedy.solve(bt, tol=SOLVER_TOL))
+    res_g = residual64(sp, zg, b)
+    iters16 = int(solver["amg"]["solve_iters"])
+    res16 = float(solver["amg"]["solve_residual64"])
+    require(c["rsell_spmv"] > 0, f"18c: no K4 launch: {c}")
+    require(int(ig["iters"]) == iters16
+            and res_g <= max(2 * res16, SOLVER_TOL),
+            f"18c: {ig['iters']} iterations (phase 16: {iters16}), residual "
+            f"{res_g:.3e} (phase 16: {res16:.3e})")
+    rec_c = {"levels": repr(greedy), "setup_s": setup_c,
+             "iters": int(ig["iters"]), "residual64": res_g,
+             "phase16_iters": iters16, "phase16_residual64": res16,
+             "launches": c}
+    print(f"-- phase 18c: smoothed_aggregation(lap, mesh=mesh) at world 1: "
+          f"{fmts}; CG {ig['iters']} iterations (phase 16: {iters16}), "
+          f"residual {res_g:.2e} (phase 16: {res16:.2e}); setup "
+          f"{setup_c:.1f} s; launches {json.dumps(c)}")
+    return {"grid": rec_b, "greedy": rec_c}, {
+        "grid": grid, "grid0": grid0, "greedy": greedy, "bt": bt}
+
+
+def phase18(mesh, d_lap, solver, train, dev) -> dict:
+    """Phase 18a-c in this process's world of one rank (NCCL): correctness
+    and launches; their times wait until 17c's children have ended."""
+    launches: dict[str, int] = {}
+    train_rec, t_objs = p18_training(mesh, train, dev, launches)
+    amg_rec, a_objs = p18_amg(mesh, d_lap, solver, dev, launches)
+    for name in ("sell_spmv", "sell_grad", "rsell_spmv", "dia_strips"):
+        require(launches.get(name, 0) > 0, f"phase 18: no {name} launch")
+    return {"train": train_rec, "amg": amg_rec, "launches": launches,
+            "timed": {**t_objs, **a_objs}}
+
+
+def phase18_times(o: dict, solver: dict, card: str) -> dict:
+    """A sharded training step (fwd + bwd) beside the unsharded one at B = 1
+    and 8, and each AMG's V-cycle beside its unsharded one (phase 16's
+    hierarchy for greedy), alone on the card; each pair in turns, sharded
+    first and last (host time drifts within a call)."""
+    from tpusparse_torch.bench.shard_overhead import SPIN
+
+    out = {"card": card}
+    m, n, dev = o["m"], o["n"], o["bt"].device
+    for batch in BATCHES:
+        x = torch.from_numpy(generators.random_sparse_batch(
+            batch, m, 0.5, seed=30 + batch)).to(dev).requires_grad_()
+        g = torch.from_numpy(np.random.default_rng(31).uniform(
+            -1, 1, (batch, n)).astype(np.float32)).to(dev)
+        runs = {"sharded": [], "unsharded": []}
+        for name in ("sharded", "unsharded", "unsharded", "sharded"):
+            ap, ps = (o["aps"], o["ps"]) if name == "sharded" else \
+                (o["apply1"], o["params1"])
+            runs[name].append(device_time(
+                lambda: torch.autograd.grad(ap(ps, x), [ps["vals"],
+                                                        ps["vals_t"], x], g),
+                name=f"step {name}", spin=SPIN).seconds * 1e6)
+        us = {k: statistics.mean(v) for k, v in runs.items()}
+        us["ratio"] = us["sharded"] / us["unsharded"]
+        us["turns"] = runs           # A B B A: host time drifts in a call
+        out[f"step_B{batch}_us"] = us
+    bt = o["bt"]
+    pairs = {"grid": (o["grid"], o["grid0"]),
+             "greedy": (o["greedy"], solver["_amg"])}  # phase 16's own
+    for case, (sharded, unsharded) in pairs.items():
+        runs = {"sharded": [], "unsharded": []}
+        for name in ("sharded", "unsharded", "unsharded", "sharded"):
+            amg = sharded if name == "sharded" else unsharded
+            runs[name].append(statistics.median(
+                timed_ms(lambda: amg(bt))[1] for _ in range(20)) * 1e3)
+        out[f"vcycle_{case}_us"] = {k: statistics.mean(v)
+                                    for k, v in runs.items()}
+        out[f"vcycle_{case}_us"]["turns"] = runs
+    out["vcycle_phase16_us"] = solver["amg"]["vcycle_us"]
+    print(f"-- phase 18 times, {card}: training step (fwd+bwd) "
+          + "; ".join(f"B={b} sharded {out[f'step_B{b}_us']['sharded']:.2f} "
+                      f"us / unsharded "
+                      f"{out[f'step_B{b}_us']['unsharded']:.2f} us = "
+                      f"{out[f'step_B{b}_us']['ratio']:.3f}" for b in BATCHES)
+          + "; V-cycle (medians of 20, in turns) " + "; ".join(
+              f"{c} sharded {out[f'vcycle_{c}_us']['sharded']:.1f} us / "
+              f"unsharded {out[f'vcycle_{c}_us']['unsharded']:.1f} us"
+              for c in ("grid", "greedy"))
+          + f" (phase 16 timed its own {out['vcycle_phase16_us']:.1f} us)")
+    return out
 
 
 def kernel_rows(results, launches, batch_of) -> list[dict]:
@@ -2593,7 +2943,7 @@ def main() -> int:
     check_block_extras(a_b, x8_b, dev)
 
     csr_a = CsrMatrix.from_dense(a)
-    apply, params, k10 = training_path(csr_a, a, dev)
+    apply, params, k10, resync = training_path(csr_a, a, dev)
     k10 += training_run(csr_a, dev)
     cases, grad_oracle = grad_kernel_cases(a, apply.statics, dev)
     grad_results = check_kernels(cases, grad_oracle, (x1[None, :], x8), dev)
@@ -2610,7 +2960,8 @@ def main() -> int:
     binned_k5 = check_binned(a_s, x1_s, x8_s, dev)
     _, k11_row = floors_study(dev)
     solver = solver_path(csr, d, dev)
-    sharded = sharded_path(d, dev)
+    sharded = sharded_path(d, dev, solver=solver,
+                           train=(csr_a, a, apply, params, resync))
 
     kernels = kernel_rows(results, launches, {}) + \
         kernel_rows(skew_results, skew_launches, PATH_BATCH) + \
@@ -2632,6 +2983,15 @@ def main() -> int:
                 "world1_nccl": sharded["world1_launches"][row["name"]],
                 "world2_gloo": [r["counts"][row["name"]]
                                 for r in sharded["world2"]]}
+        if row["name"] in P18_WRAPPERS:
+            p18 = sharded["phase18"]
+            row["phase18_launches"] = {
+                "world1_nccl": p18["launches"].get(row["name"], 0),
+                "world2_gloo": [r["p18_counts"][row["name"]]
+                                for r in sharded["world2"]]}
+            if row["name"] == "dia_spmv":
+                row["phase18_launches"]["strips_world1"] = \
+                    p18["launches"].get("dia_strips", 0)
         if row["name"] == "dia_spmv":
             row.setdefault("by_workload", {})["stencil27-104"] = {"1": dia27}
             row["strip_body"] = dict(

@@ -1580,3 +1580,101 @@ def test_io_round_trip_on_the_card(cuda, tmp_path, kind):
     m = f.shape[0]
     x = torch.from_numpy(generators.random_sparse_vector(m, 0.5, 3)).to(cuda)
     assert torch.equal(back.spmv(x), f.spmv(x))
+
+
+# -- the sharded training and AMG paths at world size 1 over NCCL -----------
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch.distributed as dist
+
+    from tpusparse_torch.parallel import initialize, make_mesh
+
+    initialize()                                  # NCCL on cuda:0
+    assert dist.get_backend() == "nccl"
+    yield make_mesh({"n": 1})
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_sharded_train_step_world1_nccl(cuda, nccl_mesh, batch):
+    """``trainable_linear_sharded`` at one rank: K1 twice and K10 twice a
+    step, and the unsharded step's y, dx and value gradients (1e-5; the
+    same kernels on the same planes)."""
+    from tpusparse_torch import trainable_linear, trainable_linear_sharded
+    from tpusparse_torch.kernels.sell_grad import sell_dvals
+
+    a = generators.random_sparse_matrix(1024, 1536, density=0.5, seed=61)
+    csr = CsrMatrix.from_dense(a)
+    aps, ps, _, resync = trainable_linear_sharded(csr, nccl_mesh)
+    ap1, p1, _, _ = trainable_linear(csr)
+    x0 = generators.random_sparse_batch(batch, 1024, 0.5, seed=62)
+    g = torch.from_numpy(np.random.default_rng(63).uniform(
+        -1, 1, (batch, 1536)).astype(np.float32)).to(cuda)
+    xs, x1 = (torch.from_numpy(x0).to(cuda).requires_grad_()
+              for _ in range(2))
+    torch.cuda.synchronize()
+    sell_spmm.launches = sell_dvals.launches = 0
+    y = aps(ps, xs)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert (sell_spmm.launches, sell_dvals.launches) == (2, 2)
+    y1 = ap1(p1, x1)
+    y1.backward(g)
+    for u, v in ((y, y1), (xs.grad, x1.grad),
+                 (ps["vals"].grad, p1["vals"].grad),
+                 (ps["vals_t"].grad, p1["vals_t"].grad)):
+        _close(u.detach(), v.detach().cpu(), 1e-5)
+    _close(y.detach(), x0.astype(np.float64) @ a.astype(np.float64), 1e-3)
+    before = ps["vals_t"].detach().clone()
+    resync(ps)
+    assert torch.equal(ps["vals_t"], before)     # no step: nothing drifted
+
+
+def _sharded_amg_case(kind):
+    if kind == "grid":
+        return generators.stencil_csr((48, 48)), dict(aggregation="grid")
+    return generators.mesh_csr(48, 48, seed=4), dict(dense_cutoff=512)
+
+
+@pytest.mark.parametrize("kind", ["grid", "greedy"])
+def test_sharded_amg_world1_nccl(cuda, nccl_mesh, kind):
+    """Side-48 AMG at one rank: grid placed with ``shard`` (level 0 through
+    the halo partition, K8) and greedy built with ``mesh=`` (ragged-SELL
+    shards, K4), each in the unsharded build's CG iterations; grid's z
+    within 1e-5, greedy's residual within max(2 x the unsharded, 1e-5)."""
+    from tpusparse_torch.amg import smoothed_aggregation
+
+    c, kw = _sharded_amg_case(kind)
+    b = torch.from_numpy(np.random.default_rng(64).uniform(
+        -1, 1, c.shape[0]).astype(np.float32)).to(cuda)
+    h0 = smoothed_aggregation(c, **kw)
+    if kind == "grid":
+        sh = h0.shard(nccl_mesh)
+        assert type(sh.levels[0].a).__name__ == "_HaloDia"
+    else:
+        sh = smoothed_aggregation(c, mesh=nccl_mesh, **kw)
+        assert sh.levels[0].fmt == "rsell-shard"
+    tol = 1e-5 if kind == "grid" else 1e-6
+    z0, i0 = h0.solve(b, tol=tol)
+    torch.cuda.synchronize()
+    dia_spmv.launches = rsell_spmm.launches = 0
+    z, info = sh.solve(b, tol=tol)
+    torch.cuda.synchronize()
+    assert info["iters"] == i0["iters"]
+    if kind == "grid":
+        assert dia_spmv.launches > 0
+        _close(z, z0.cpu(), 1e-5)
+    else:
+        assert rsell_spmm.launches > 0
+        sp = c.to_scipy().astype(np.float64)
+        bh = b.cpu().numpy().astype(np.float64)
+
+        def relres(zz):
+            return np.linalg.norm(sp @ zz.double().cpu().numpy() - bh) \
+                / np.linalg.norm(bh)
+
+        assert relres(z) <= max(2 * relres(z0), 1e-5)

@@ -35,7 +35,8 @@ NEW_MODULES = ("formats.bsr", "formats.tcsr", "formats.dia",
                "bench.profile", "native", "formats.io", "entry", "reorder",
                "solve", "eig", "amg", "parallel", "parallel.mesh",
                "parallel.comm", "parallel.launch", "parallel.partition",
-               "parallel.sparse", "parallel.dryrun", "bench.shard_overhead")
+               "parallel.sparse", "parallel.dryrun", "bench.shard_overhead",
+               "bench.scaling", "bench.commmodel")
 JAX_TWIN = {"dense_torch": "dense_xla", "dense_cuda": "dense_pallas",
             "sell_cuda": "sell_pallas", "awsp_cuda": "awsp_pallas"}
 FULL_TWIN = {"ell_torch": "ell_xla", "bell_cuda": "bell_pallas",

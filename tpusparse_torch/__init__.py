@@ -3,7 +3,8 @@
 ``Y = X @ A`` SpMV/SpMM over SELL, AWSP, RSELL, ASP, BSR, TCSR, DIA, ELL,
 BELL and binned SELL packs, picked by ``auto_format`` or by hand, and
 sparse-weight training (``linear_map``, ``trainable_linear``,
-``nn.SparseLinear``) with the pruning and graph on-ramps, and the solver
+``nn.SparseLinear``, and over a device mesh ``linear_map_sharded`` and
+``trainable_linear_sharded``) with the pruning and graph on-ramps, and the solver
 path (``solve``, ``eig``, ``amg``, ``reorder``, pack persistence in
 ``formats.io`` and the native host converters in ``native``), with kernels
 written by hand for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first
@@ -13,7 +14,12 @@ each kernel's plain PyTorch version. The package imports torch and numpy
 only; the JAX package ``tpusparse`` is its reference and is never imported.
 """
 
-from tpusparse_torch.autodiff import linear_map, trainable_linear  # noqa: F401
+from tpusparse_torch.autodiff import (  # noqa: F401
+    linear_map,
+    linear_map_sharded,
+    trainable_linear,
+    trainable_linear_sharded,
+)
 from tpusparse_torch.config import SpmvConfig  # noqa: F401
 from tpusparse_torch.formats import (  # noqa: F401
     AspMatrix,

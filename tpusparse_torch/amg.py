@@ -25,9 +25,23 @@ device:
 
 ``save``/``load`` write and read the JAX package's checkpoint (a manifest
 and ``formats.io``-encoded packs), so a hierarchy built in either package
-loads in the other. The JAX package's multi-device placements
-(``_ShardedOp``, ``shard``, ``smoothed_aggregation(mesh=...)``) and its
-TPU upload helpers are not part of this module.
+loads in the other. The JAX package's TPU upload helpers have no
+counterpart.
+
+Across ranks (``parallel``, one process a rank) the level vectors stay
+whole on every rank and each operator apply computes the rank's slab and
+gathers y, so the V-cycle's vector operations, and CG's dot products and
+stopping test, run alike on every rank:
+
+- ``smoothed_aggregation(..., mesh=mesh)`` packs each greedy level above
+  ``dense_cutoff`` (its operator and both carriers) as contiguous
+  ragged-SELL column shards (``_ShardedOp``: K4 on the rank's shard, no
+  unpermute), then places the rest with ``shard``;
+- ``shard(mesh)`` runs each grid or block level's DIA operator through the
+  halo partition (``parallel.sparse.dia_spmm_sharded``: K8 with halo strips
+  where its rule holds) when the level's n divides by D; dense levels, the
+  grid and block transfers, ``dinv`` and the coarse inverse are
+  replicated. It refuses a greedy hierarchy packed for one device.
 """
 
 from __future__ import annotations
@@ -306,6 +320,69 @@ def _apply(op, v: torch.Tensor) -> torch.Tensor:
     return op.spmv(v)
 
 
+class _ShardedOp:
+    """A level operator or prolongator carrier as CONTIGUOUS ragged-SELL
+    column shards over a mesh (``formats.rsell.rsell_shard_pack(...,
+    assignment="contiguous")``, the JAX package's pack bit for bit): rank d
+    owns output columns [d * cps, (d + 1) * cps) and uploads only its own
+    shard, once, at construction. ``spmv`` is K4 on that shard and a
+    gather of y (``parallel.sparse.rsell_spmm_sharded``); contiguous shards
+    need no output permutation."""
+
+    def __init__(self, shards, mesh):
+        from tpusparse_torch.parallel.sparse import rsell_rank_shard
+
+        self.shards, self.mesh = shards, mesh
+        self.shape, self.nnz = shards.shape, int(shards.nnz)
+        rsell_rank_shard(shards, mesh)
+
+    @property
+    def n_shards(self) -> int:
+        return self.shards.n_shards
+
+    @classmethod
+    def from_scipy(cls, sp, mesh) -> "_ShardedOp":
+        from tpusparse_torch.formats.rsell import rsell_shard_pack
+        from tpusparse_torch.parallel.mesh import axis_size
+
+        csr = CsrMatrix.from_scipy(sp.astype(np.float32))
+        return cls(rsell_shard_pack(csr, axis_size(mesh, "n"),
+                                    assignment="contiguous"), mesh)
+
+    def spmv(self, v: torch.Tensor) -> torch.Tensor:
+        from tpusparse_torch.parallel.sparse import rsell_spmm_sharded
+
+        return rsell_spmm_sharded(self.shards, v, self.mesh)
+
+    def device_bytes(self) -> int:
+        """The bytes of every rank's shard together (the chunk streams)."""
+        return sum(int(np.asarray(getattr(self.shards, k)).nbytes)
+                   for k in ("cj", "ct", "idx", "vals"))
+
+    def __repr__(self) -> str:
+        return (f"_ShardedOp(shape={self.shape}, nnz={self.nnz}, "
+                f"D={self.n_shards})")
+
+
+class _HaloDia:
+    """A DIA level operator over a mesh: each apply is the halo partition
+    (``parallel.sparse.dia_spmm_sharded(dm, v, mesh, "halo")``), the rank's
+    slab of y from its slab of v and its neighbours' edges, then y
+    gathered."""
+
+    def __init__(self, dm, mesh):
+        self.dm, self.mesh = dm, mesh
+        self.shape, self.nnz = dm.shape, dm.nnz
+
+    def spmv(self, v: torch.Tensor) -> torch.Tensor:
+        from tpusparse_torch.parallel.sparse import dia_spmm_sharded
+
+        return dia_spmm_sharded(self.dm, v, self.mesh, "halo")
+
+    def __repr__(self) -> str:
+        return f"_HaloDia({self.dm!r})"
+
+
 class _Level:
     """One device level: operator ``a`` (a pack or a dense tensor),
     transfers ``p`` / ``pt`` (greedy: packed carriers of ``P`` and ``Pᵀ``;
@@ -331,8 +408,10 @@ class SmoothedAggregationAMG:
     Build with :func:`smoothed_aggregation`."""
 
     def __init__(self, levels, coarse_inv: torch.Tensor, theta: float,
-                 degree: int, ratio: float, omega: float = 4.0 / 3.0):
+                 degree: int, ratio: float, omega: float = 4.0 / 3.0,
+                 mesh=None):
         self.levels = tuple(levels)
+        self.mesh = mesh                 # set by ``shard``
         self.coarse_inv = coarse_inv
         self.theta = theta
         self.degree = degree
@@ -441,6 +520,47 @@ class SmoothedAggregationAMG:
         return cg(self.levels[0].apply_a, b, x0, tol=tol, atol=atol,
                   maxiter=maxiter, m_inv=self)
 
+    def shard(self, mesh) -> "SmoothedAggregationAMG":
+        """Multi-rank placement: a copy of the hierarchy whose grid and
+        block levels apply their DIA operators through the halo partition
+        over ``mesh``'s ``"n"`` dimension, where the level's n divides by D
+        (the JAX package's rule; other levels run as they are). Dense
+        levels, transfers, ``dinv`` and the coarse inverse are replicated.
+        Levels placed already (greedy levels built with
+        ``smoothed_aggregation(..., mesh=mesh)``, or an earlier ``shard``)
+        pass through. A greedy hierarchy packed for one device is refused:
+        its carriers are single-device packs."""
+        from tpusparse_torch.formats.dia import DiaMatrix
+        from tpusparse_torch.parallel.mesh import axis_size
+
+        d = axis_size(mesh, "n")
+
+        def place(lev: _Level) -> _Level:
+            if any(isinstance(o, (_ShardedOp, _HaloDia))
+                   for o in (lev.a, lev.p, lev.pt)):
+                return lev                     # placed already
+            ok_op = isinstance(lev.a, (torch.Tensor, DiaMatrix))
+            ok_tr = lev.kind in ("grid", "block") or all(
+                c is None or isinstance(c, torch.Tensor)
+                for c in (lev.p, lev.pt))
+            if not (ok_op and ok_tr):
+                raise ValueError(
+                    f"level n={lev.n} ({lev.fmt}|{lev.kind}) holds "
+                    "single-device packed operators or carriers; build "
+                    "greedy hierarchies sharded from the start with "
+                    "smoothed_aggregation(..., mesh=mesh) (ragged-SELL "
+                    "column shards), or use aggregation='grid'/'block' (or "
+                    "raise dense_cutoff) for this placement")
+            a = lev.a
+            if isinstance(a, DiaMatrix) and lev.n % d == 0:
+                a = _HaloDia(a, mesh)
+            return _Level(a, lev.p, lev.pt, lev.dinv, lev.lmax, lev.n,
+                          lev.nnz, lev.fmt, lev.kind, lev.shape2d)
+
+        return SmoothedAggregationAMG(
+            tuple(place(lv) for lv in self.levels), self.coarse_inv,
+            self.theta, self.degree, self.ratio, self.omega, mesh=mesh)
+
     # -- persistence ---------------------------------------------------
     def save(self, path) -> None:
         """The whole hierarchy in one ``.npz``, in the JAX package's
@@ -449,6 +569,11 @@ class SmoothedAggregationAMG:
         arrays, sizes and smoother constants in the manifest."""
         from tpusparse_torch.formats import io as _io
 
+        if self.mesh is not None:
+            raise ValueError(
+                "sharded hierarchies (shard(mesh), smoothed_aggregation("
+                "mesh=...)) are not saveable: persist the unsharded build "
+                "and place it again after loading")
         arrays: dict[str, np.ndarray] = {}
         man_levels = []
         for i, lev in enumerate(self.levels):
@@ -550,7 +675,7 @@ def smoothed_aggregation(a, *, theta: float | str = "auto", degree: int = 2,
                          dense_cutoff: int = 2048,
                          aggregation: str = "auto", block_size: int = 8,
                          grid_block: int = 3, sym_tol: float = 1e-6,
-                         device=None) -> SmoothedAggregationAMG:
+                         device=None, mesh=None) -> SmoothedAggregationAMG:
     """Build a smoothed-aggregation AMG hierarchy for symmetric ``a`` (a
     ``CsrMatrix``, scipy sparse or dense array) on ``device`` (None: the
     GPU).
@@ -565,27 +690,47 @@ def smoothed_aggregation(a, *, theta: float | str = "auto", degree: int = 2,
     (Vanek aggregates, packed carriers), ``"grid"`` (``grid_block``-square
     blocks of a detected lattice, reshape transfers), ``"block"``
     (``block_size`` consecutive indices), or ``"auto"`` (block on narrow
-    contiguous bands, greedy elsewhere), as in the JAX package."""
-    resolve_device(device)               # fail before the setup, not after
+    contiguous bands, greedy elsewhere), as in the JAX package.
+
+    ``mesh``: build the hierarchy over a device mesh (call on every rank
+    with the same ``a``): greedy levels above ``dense_cutoff`` become
+    ragged-SELL column shards (``fmt`` ``"rsell-shard"``), the rest is
+    placed by ``shard``. The device is then the mesh's."""
+    _device(device, mesh)                # fail before the setup, not after
     host = host_hierarchy(
         a, theta=theta, coarse_size=coarse_size, max_levels=max_levels,
         omega=omega, aggregation=aggregation, block_size=block_size,
         grid_block=grid_block, sym_tol=sym_tol)
     return from_host(*host, degree=degree, ratio=ratio, omega=omega,
-                     dense_cutoff=dense_cutoff, device=device)
+                     dense_cutoff=dense_cutoff, device=device, mesh=mesh)
+
+
+def _device(device, mesh) -> torch.device:
+    if mesh is None:
+        return resolve_device(device)
+    from tpusparse_torch.parallel.mesh import mesh_device
+
+    return mesh_device(mesh)
 
 
 def from_host(levels_h, coarse, theta_resolved: float, *, degree: int = 2,
               ratio: float = 8.0, omega: float = 4.0 / 3.0,
-              dense_cutoff: int = 2048,
-              device=None) -> SmoothedAggregationAMG:
+              dense_cutoff: int = 2048, device=None,
+              mesh=None) -> SmoothedAggregationAMG:
     """The device half of ``smoothed_aggregation``: pack a
-    ``host_hierarchy`` (its three outputs) on ``device``."""
-    dev = resolve_device(device)
+    ``host_hierarchy`` (its three outputs) on ``device``, or over ``mesh``
+    (see there)."""
+    dev = _device(device, mesh)
     levels: list[_Level] = []
     for h in levels_h:
         n = h.sp.shape[0]
-        a_op, fmt_name = _pack(h.sp, dense_cutoff, square=True, device=dev)
+        shard_lvl = mesh is not None and h.kind == "packed" \
+            and n > dense_cutoff
+        if shard_lvl:
+            a_op, fmt_name = _ShardedOp.from_scipy(h.sp, mesh), "rsell-shard"
+        else:
+            a_op, fmt_name = _pack(h.sp, dense_cutoff, square=True,
+                                   device=dev)
         dinv = torch.from_numpy(h.dinv.astype(np.float32)).to(dev)
         lmax = float(np.float32(h.lmax))
         weights = (1.0 / np.sqrt(np.bincount(h.agg, minlength=h.n_agg)
@@ -601,6 +746,12 @@ def from_host(levels_h, coarse, theta_resolved: float, *, degree: int = 2,
             levels.append(_Level(a_op, torch.from_numpy(w0).to(dev), None,
                                  dinv, lmax, n, h.sp.nnz, fmt_name,
                                  kind="block"))
+        elif shard_lvl:
+            # carriers shard over their output columns: P over the coarse
+            # ids, Pt over the fine ids; vectors stay whole between levels
+            levels.append(_Level(a_op, _ShardedOp.from_scipy(h.p, mesh),
+                                 _ShardedOp.from_scipy(h.p.T.tocsr(), mesh),
+                                 dinv, lmax, n, h.sp.nnz, fmt_name))
         else:
             p_op, _ = _pack(h.p, dense_cutoff, square=False, device=dev)
             pt_op, _ = _pack(h.p.T.tocsr(), dense_cutoff, square=False,
@@ -614,5 +765,6 @@ def from_host(levels_h, coarse, theta_resolved: float, *, degree: int = 2,
     # (symmetric, so the row-vector convention needs no transpose)
     coarse_inv = torch.from_numpy(
         np.linalg.inv(coarse.toarray()).astype(np.float32)).to(dev)
-    return SmoothedAggregationAMG(tuple(levels), coarse_inv, theta_resolved,
-                                  degree, ratio, omega)
+    out = SmoothedAggregationAMG(tuple(levels), coarse_inv, theta_resolved,
+                                 degree, ratio, omega)
+    return out if mesh is None else out.shard(mesh)

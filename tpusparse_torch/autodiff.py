@@ -1,9 +1,8 @@
 """Differentiable sparse linear maps, ``y = x @ A``, as
 ``torch.autograd.Function``s.
 
-Counterpart of ``tpusparse/autodiff.py`` without ``linear_map_sharded`` and
-``trainable_linear_sharded`` (ROADMAP.md item 22). For a linear map the rule
-is exact:
+Counterpart of ``tpusparse/autodiff.py``. For a linear map the rule is
+exact:
 
     y = x @ A        =>        dL/dx = g @ A.T        (g = dL/dy)
 
@@ -19,6 +18,15 @@ so the backward pass is another SpMV/SpMM, through a format packed from
   own layout from K10 (``kernels/sell_grad.py``), so any elementwise
   optimizer update keeps them tied up to rounding; ``resync`` re-ties
   ``vals_t`` from ``vals`` exactly.
+
+- ``linear_map_sharded`` and ``trainable_linear_sharded`` are the same
+  over a device mesh (``parallel``): one process a rank, every rank given
+  the same x and returning the full y. Every rank computes the same loss
+  from that y, so every rank holds the full cotangent g, and the backward
+  needs no collective of its own beyond the dual partition's. The
+  collectives (``parallel.comm``) build no autograd graph: the rule is
+  written out, never differentiated through a gather (whose backward would
+  sum the D identical copies of g).
 
 The JAX package's ``statics=`` keyword exists for the TPU's remote compile
 (its inline constants outgrew the payload limit); here the structure planes
@@ -38,6 +46,8 @@ from tpusparse_torch.formats.sell import (_sorted_rows, as_input,
                                           sell_pack_csr, sell_slot_flat)
 from tpusparse_torch.kernels.sell_grad import sell_dvals
 from tpusparse_torch.kernels.sell_spmv import sell_spmm
+from tpusparse_torch.parallel import comm
+from tpusparse_torch.parallel.mesh import axis_size, mesh_device
 from tpusparse_torch.utils import resolve_device
 
 
@@ -233,3 +243,201 @@ def trainable_linear(csr: CsrMatrix, device=None):
 
     apply.statics = statics
     return apply, params, leaves["masks"], resync
+
+
+# an output-column shard of A is a contraction shard of A.T and vice versa;
+# "ring" is self-dual, and so is "2d" (batch x output): the backward shards
+# A.T's own output groups over the same dimension
+_DUAL_PARTITION = {"n": "m", "m": "n", "ring": "ring", "2d": "2d"}
+
+
+class _ShardedLinearMap(torch.autograd.Function):
+    """``x @ A`` through ``parallel.sparse.sell_spmm_sharded``; the backward
+    is ``g @ A.T`` through the same call on ``fmt_t`` under the dual
+    partition. The packed values are constants."""
+
+    @staticmethod
+    def forward(ctx, x, fmt, fmt_t, mesh, partition, dual):
+        from tpusparse_torch.parallel.sparse import sell_spmm_sharded
+
+        ctx.args = (fmt_t, mesh, dual)
+        return sell_spmm_sharded(fmt, x, mesh, partition)
+
+    @staticmethod
+    def backward(ctx, g):
+        from tpusparse_torch.parallel.sparse import sell_spmm_sharded
+
+        fmt_t, mesh, dual = ctx.args
+        return (sell_spmm_sharded(fmt_t, g.contiguous(), mesh, dual),
+                None, None, None, None, None)
+
+
+def linear_map_sharded(fmt: Any, fmt_t: Any, mesh: Any,
+                       partition: str = "n") -> Callable[[Any], torch.Tensor]:
+    """Differentiable ``x @ A`` over a device mesh (SELL packs on the host;
+    each rank uploads its own shard once, ``parallel.sparse``).
+
+    The backward is ``g @ A.T`` under the dual partition: an output-column
+    shard of A is a contraction shard of A.T (and vice versa), so forward
+    ``n`` pairs with backward ``m`` (its partial sums summed over the
+    group), and ``ring`` and ``2d`` are self-dual. The values are frozen,
+    as in ``linear_map``. The result lies on the mesh's device."""
+    m, n = fmt.shape
+    if tuple(fmt_t.shape) != (n, m):
+        raise ValueError(
+            f"fmt_t.shape {tuple(fmt_t.shape)} is not the transpose of "
+            f"fmt.shape {(m, n)}")
+    if partition not in _DUAL_PARTITION:
+        raise ValueError(f"unknown partition {partition!r}; supported: "
+                         f"{sorted(_DUAL_PARTITION)}")
+    dual = _DUAL_PARTITION[partition]
+    dev = mesh_device(mesh)
+
+    def apply(x):
+        return _ShardedLinearMap.apply(as_input(x, dev), fmt, fmt_t, mesh,
+                                       partition, dual)
+
+    return apply
+
+
+def _pad(a: np.ndarray, axis: int, d: int, value) -> np.ndarray:
+    """Pad ``axis`` of a host array to a multiple of ``d`` with ``value``."""
+    pad = -a.shape[axis] % d
+    if not pad:
+        return a
+    widths = [(0, 0)] * a.ndim
+    widths[axis] = (0, pad)
+    return np.pad(a, widths, constant_values=value)
+
+
+class _RankTwin:
+    """One rank's planes of the twin layouts: its column groups of the
+    forward pack (``idx``, the signed ``s_f``) and its n-windows of the
+    transpose pack (``idx_t``, ``s_t``), each padded to a multiple of D (the
+    signed planes with -1), sliced once and contiguous on the device."""
+
+    def __init__(self, pack: _TwinPack, mesh, dev: torch.device):
+        self.group = mesh.get_group("n")
+        self.d, self.me = axis_size(mesh, "n"), mesh.get_local_rank("n")
+        self.m, self.n = pack.fmt["shape"]
+        nb = pack.fmt["vals"].shape[0]
+        if pack.fmt_t["vals"].shape[1] != nb:
+            raise AssertionError("the transpose pack's windows are not the "
+                                 "forward pack's column groups")
+        self.nbl = -(-nb // self.d)              # groups (and windows) a rank
+        self.cut = slice(self.me * self.nbl, (self.me + 1) * self.nbl)
+        self.dev = dev
+        self.idx = self.groups(pack.fmt["idx"], 0)
+        self.s_f = self.groups(pack.s_f, -1)
+        self.idx_t = self.windows(pack.fmt_t["idx"], 0)
+        self.s_t = self.windows(pack.s_t, -1)
+
+    def groups(self, a, value) -> torch.Tensor:
+        """The rank's column groups (axis 0) of a forward-layout plane."""
+        return self._up(_pad(np.asarray(a), 0, self.d, value)[self.cut])
+
+    def windows(self, a, value) -> torch.Tensor:
+        """The rank's n-windows (axis 1) of a transpose-layout plane."""
+        return self._up(_pad(np.asarray(a), 1, self.d, value)[:, self.cut])
+
+    def _up(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
+
+    def cols(self, v: torch.Tensor) -> torch.Tensor:
+        """This rank's columns of a (B, n) cotangent: the output columns of
+        its groups, which are the contraction rows of its windows of A.T."""
+        if self.d == 1:
+            return v
+        width = self.d * self.nbl * 128
+        v = torch.nn.functional.pad(v, (0, width - v.shape[1]))
+        return v[:, self.cut.start * 128:self.cut.stop * 128].contiguous()
+
+
+class _ShardedTwin(torch.autograd.Function):
+    """``y = x @ A`` over one rank's shards of the twin layouts (the
+    ``TwinSell`` rule under ``trainable_linear_sharded``'s plan):
+    forward K1 on the rank's groups, y gathered; dx K1 on the rank's
+    windows of A.T with its columns of g, summed over the group; ``dvals``
+    K10 on its groups of ``s_f`` with its columns of g, ``dvals_t`` K10 on
+    its windows of ``s_t`` with g and x swapped, neither with any
+    communication."""
+
+    @staticmethod
+    def forward(ctx, vals, vals_t, x, rk):
+        ctx.rk = rk
+        ctx.save_for_backward(vals_t, x)
+        y = sell_spmm(rk.idx, vals, x.reshape(-1, x.shape[-1]).contiguous())
+        y = comm.all_gather_x(y, rk.group, axis=1)[:, :rk.n]
+        return y.reshape(*x.shape[:-1], rk.n)
+
+    @staticmethod
+    def backward(ctx, gy):
+        vals_t, x = ctx.saved_tensors
+        rk = ctx.rk
+        need_v, need_vt, need_x = ctx.needs_input_grad[:3]
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        g_loc = rk.cols(gy.reshape(-1, gy.shape[-1]).contiguous())
+        dvals = sell_dvals(rk.s_f, x2, g_loc) if need_v else None
+        dvals_t = sell_dvals(rk.s_t, g_loc, x2) if need_vt else None
+        dx = None
+        if need_x:
+            dx = comm.psum_y(sell_spmm(rk.idx_t, vals_t, g_loc, n=rk.m),
+                             rk.group).reshape(x.shape)
+        return dvals, dvals_t, dx, None
+
+
+def trainable_linear_sharded(csr: CsrMatrix, mesh: Any, device=None):
+    """Multi-rank sparse-weight training: ``trainable_linear`` with every
+    pass partitioned over the mesh's ``"n"`` dimension (D ranks, one
+    process each; call it on every rank with the same ``csr``).
+
+    Plan (the JAX package's):
+      - forward ``x @ A``: the ``n`` partition. Each rank runs K1 over its
+        column groups of ``vals``; y is gathered, so every rank returns it
+        whole;
+      - ``dx = g @ A.T``: the dual ``m`` partition. Each rank runs K1 over
+        its n-windows of ``vals_t`` and the partial dx are summed over the
+        group;
+      - ``dvals`` and ``dvals_t``: K10 on the rank's groups of ``s_f`` and
+        windows of ``s_t``, from its own columns of the full g and the full
+        x it already holds: no communication.
+
+    Returns ``(apply, params, masks, resync)`` as ``trainable_linear``
+    does, but ``params`` and ``masks`` are THIS RANK'S shards: ``vals``
+    its column groups (axis 0), ``vals_t`` its n-windows (axis 1), both
+    padded to a multiple of D (pad slots masked False, gradient exactly 0).
+    A ``torch.optim`` optimizer on a rank updates that rank's shards; no
+    gradient is averaged over ranks (do not wrap the model in
+    ``DistributedDataParallel``). ``resync(params)`` re-ties the rank's
+    ``vals_t`` windows from every rank's ``vals`` (one all-gather of the
+    ``vals`` shards, then the re-tie gather), in place and bit for bit as
+    the unsharded ``resync``. ``device=None`` is the mesh's device."""
+    dev = mesh_device(mesh) if device is None else resolve_device(device)
+    pack = _TwinPack(csr)
+    rk = _RankTwin(pack, mesh, dev)
+    params = {"vals": rk.groups(pack.fmt["vals"], 0).requires_grad_(),
+              "vals_t": rk.windows(pack.fmt_t["vals"], 0).requires_grad_()}
+    masks = {"vals": rk.groups(pack.mask_f, False),
+             "vals_t": rk.windows(pack.mask_t, False)}
+    gather, live = pack.retie_map()
+    t_shape = pack.fmt_t["vals"].shape
+    # vals_t's windows are re-tied from forward entries that other ranks
+    # own: flat indices into the whole vals, which padding groups at its
+    # end leaves where they were
+    gather_l = rk.windows(gather.reshape(t_shape), 0).reshape(-1)
+    live_l = rk.windows(live.reshape(t_shape), False)
+    del pack
+
+    def apply(p, x):
+        return _ShardedTwin.apply(p["vals"], p["vals_t"], as_input(x, dev),
+                                  rk)
+
+    def resync(p):
+        with torch.no_grad():
+            full = comm.all_gather_x(p["vals"].detach(), rk.group, axis=0)
+            p["vals_t"].copy_(retied(full, gather_l, live_l))
+        return p
+
+    apply.statics = {"idx": rk.idx, "idx_t": rk.idx_t, "s_f": rk.s_f,
+                     "s_t": rk.s_t}
+    return apply, params, masks, resync

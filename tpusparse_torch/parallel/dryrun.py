@@ -15,6 +15,20 @@ from the same seeds, and is held to a float64 oracle. Two sizes:
 SpMM cases (``2d``) take 4 batch rows (small) or 8 (full) over a
 ``("b", "n")`` mesh; the others one vector.
 
+Three solver and training cases close the list (``solver_cases``): a grid
+AMG solve through ``shard(mesh)`` (DIA levels through the halo partition),
+a greedy AMG solve built with ``smoothed_aggregation(..., mesh=mesh)``
+(ragged-SELL column shards, K4), and two SGD steps of
+``trainable_linear_sharded`` on its weights and its activations. Small:
+the JAX list's side-24 Laplacian and ``mesh_csr(24, 24, seed=9)``, both
+with ``dense_cutoff=128`` (so that the Laplacian's finest level is DIA and
+goes through the halo partition), and the (128 D)^2 matrix with one vector; full: the
+1M-unknown Laplacian for both solves (default ``dense_cutoff``) and the
+headline 4096^2 with 8 batch rows. Each is held to the unsharded build:
+the same CG iterations, z within 1e-5 (grid) or a float64 relative
+residual within max(2 x the unsharded one, 1e-5) (greedy), and a falling
+loss.
+
 Run as a program, it is the multi-card dry run of the JAX package's
 ``dryrun_multichip(n_devices)``: ``python -m tpusparse_torch.parallel.dryrun
 --world 4`` starts 4 ranks on this host (rank r on ``cuda:r`` over NCCL, or
@@ -221,6 +235,138 @@ def expected_collectives(d: int, me: int) -> dict[str, np.ndarray]:
             "ring_shift-1": held[(me + 1) % d]}
 
 
+SOLVER_SIZES = {"small": dict(side=24, fem=(24, 24, 9), dense_cutoff=128),
+                "full": dict(side=1024, fem=None, dense_cutoff=2048)}
+GREEDY_TOL = 1e-6            # the JAX list's greedy solve
+TRAIN_LR, X_LR = 1e-3, 1e-2  # the JAX list's train step
+
+
+def solver_operands(size: str, ops: dict[str, Any]) -> dict[str, Any]:
+    """The solver cases' seeded host operands: the grid Laplacian, the
+    greedy case's matrix (the FEM graph, or the Laplacian at full size),
+    their right-hand sides, and the train step's matrix and x (the list's
+    ``a`` with its vector, or its 8 batch rows at full size)."""
+    cfg = SOLVER_SIZES[size]
+    lap = generators.stencil_csr((cfg["side"], cfg["side"]))
+    fem = lap if cfg["fem"] is None else generators.mesh_csr(
+        cfg["fem"][0], cfg["fem"][1], seed=cfg["fem"][2])
+    return dict(lap=lap, fem=fem, dense_cutoff=cfg["dense_cutoff"],
+                b_grid=generators.random_sparse_vector(lap.shape[0], 0.5, 2),
+                b_greedy=generators.random_sparse_vector(fem.shape[0], 0.5,
+                                                         3),
+                a_train=ops["a"],
+                x_train=ops["x"] if size == "small" else ops["xb"])
+
+
+def _grid(sops, dev, mesh=None):
+    from tpusparse_torch.amg import smoothed_aggregation
+
+    amg = smoothed_aggregation(sops["lap"], aggregation="grid", device=dev,
+                               dense_cutoff=sops["dense_cutoff"])
+    return amg if mesh is None else amg.shard(mesh)
+
+
+def _greedy(sops, dev, mesh=None):
+    from tpusparse_torch.amg import smoothed_aggregation
+
+    return smoothed_aggregation(sops["fem"], dense_cutoff=sops["dense_cutoff"],
+                                device=dev, mesh=mesh)
+
+
+def _solve(amg, b, tol, dev) -> tuple[np.ndarray, int]:
+    z, info = amg.solve(torch.from_numpy(b).to(dev), tol=tol)
+    return z.cpu().numpy(), int(info["iters"])
+
+
+def solver_cases(sops: dict[str, Any], mesh,
+                 train: bool = True) -> dict[str, Any]:
+    """The three cases on ``mesh`` (the AMG solves alone without
+    ``train``): each AMG solve's z and iterations and its levels' formats;
+    the train step's two losses, the activations after the first step, and
+    this rank's ``vals`` and ``vals_t`` shards after ``resync`` (with their
+    drift from the re-tied copy before it)."""
+    from tpusparse_torch.autodiff import trainable_linear_sharded
+    from tpusparse_torch.formats import CsrMatrix
+    from tpusparse_torch.parallel.mesh import mesh_device
+
+    dev = mesh_device(mesh)
+    out: dict[str, Any] = {}
+    grid = _grid(sops, dev, mesh)
+    out["grid_z"], out["grid_iters"] = _solve(grid, sops["b_grid"], CG_TOL,
+                                              dev)
+    out["grid_levels"] = [type(lv.a).__name__ for lv in grid.levels]
+    greedy = _greedy(sops, dev, mesh)
+    out["greedy_z"], out["greedy_iters"] = _solve(greedy, sops["b_greedy"],
+                                                  GREEDY_TOL, dev)
+    out["greedy_levels"] = [lv.fmt for lv in greedy.levels]
+    if not train:
+        return out
+    ap, params, _, resync = trainable_linear_sharded(
+        CsrMatrix.from_dense(sops["a_train"]), mesh)
+    n = sops["a_train"].shape[1]
+    x = torch.from_numpy(sops["x_train"]).to(dev)
+    losses = []
+    for step in range(2):
+        xr = x.clone().requires_grad_()
+        loss = (ap(params, xr) ** 2).sum() / n
+        loss.backward()
+        with torch.no_grad():
+            for p in params.values():
+                p -= TRAIN_LR * p.grad
+                p.grad = None
+            x = x - X_LR * xr.grad
+        losses.append(float(loss))
+        if step == 0:
+            out["train_x1"] = x.cpu().numpy()
+    before = params["vals_t"].detach().clone()
+    resync(params)
+    out["train_loss"] = np.array(losses)
+    out["train_drift"] = float((before - params["vals_t"]).abs().max())
+    out["train_vals"] = params["vals"].detach().cpu().numpy()
+    out["train_vals_t"] = params["vals_t"].detach().cpu().numpy()
+    return out
+
+
+def solver_reference(sops: dict[str, Any], dev) -> dict[str, Any]:
+    """The unsharded AMG solves of ``solver_cases`` on ``dev``."""
+    ref = {}
+    ref["grid_z"], ref["grid_iters"] = _solve(_grid(sops, dev),
+                                              sops["b_grid"], CG_TOL, dev)
+    ref["greedy_z"], ref["greedy_iters"] = _solve(
+        _greedy(sops, dev), sops["b_greedy"], GREEDY_TOL, dev)
+    return ref
+
+
+def relres(csr, z: np.ndarray, b: np.ndarray) -> float:
+    """||A z - b|| / ||b|| in float64."""
+    sp = csr.to_scipy().astype(np.float64)
+    b = b.astype(np.float64)
+    return float(np.linalg.norm(sp @ z.astype(np.float64) - b)
+                 / np.linalg.norm(b))
+
+
+def judge_solver(sops: dict[str, Any], got: dict[str, Any],
+                 ref: dict[str, Any]) -> dict[str, Any]:
+    """The solver cases against the unsharded build: ``ok`` and what it
+    rests on."""
+    r_g, r_0 = (relres(sops["fem"], z, sops["b_greedy"])
+                for z in (got["greedy_z"], ref["greedy_z"]))
+    rec = {"grid_iters": [int(got["grid_iters"]), int(ref["grid_iters"])],
+           "grid_dz": float(np.abs(got["grid_z"] - ref["grid_z"]).max()),
+           "grid_res": relres(sops["lap"], got["grid_z"], sops["b_grid"]),
+           "greedy_iters": [int(got["greedy_iters"]),
+                            int(ref["greedy_iters"])],
+           "greedy_relres": [r_g, r_0],
+           "train_loss": [float(v) for v in got["train_loss"]]}
+    rec["ok"] = bool(
+        rec["grid_iters"][0] == rec["grid_iters"][1]
+        and rec["grid_dz"] <= CG_TOL and rec["grid_res"] <= ATOL
+        and rec["greedy_iters"][0] == rec["greedy_iters"][1]
+        and r_g <= max(2.0 * r_0, CG_TOL)
+        and rec["train_loss"][1] < rec["train_loss"][0])
+    return rec
+
+
 ATOL = 1e-3
 CG_TOL = 1e-5
 
@@ -262,12 +408,21 @@ def check_rank(rank: int, world: int, port: int, size: str, device: str,
     z, info = cg(lambda v: dia_spmm_sharded(dm, v, mesh, "halo"), b,
                  tol=CG_TOL)
     rec["cg_iters"] = int(info["iters"])
+    sops = solver_operands(size, ops)
+    solved = solver_cases(sops, mesh)
+    rec["solver_levels"] = {k: solved.pop(k) for k in ("grid_levels",
+                                                       "greedy_levels")}
     if rank == 0:
         d0 = DiaMatrix(dm.offsets, dm.vals.to(dev), dm.shape, dm.nnz,
                        sym=dm.sym)
         z0, info0 = cg(d0, b, tol=CG_TOL)
         rec["cg_unsharded_iters"] = int(info0["iters"])
         rec["cg_same_bits"] = bool(torch.equal(z, z0))
+        rec["solver"] = judge_solver(sops, solved,
+                                     solver_reference(sops, dev))
+    shared = {k: v for k, v in solved.items()
+              if k not in ("train_vals", "train_vals_t", "train_drift")}
+    ys.update({f"solver:{k}": np.asarray(v) for k, v in shared.items()})
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **ys)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
@@ -316,9 +471,12 @@ def run(world: int, size: str = "full", device: str = "cuda",
     worst = max(e for rc in recs for e in rc["errs"].values())
     cg_ok = recs[0]["cg_same_bits"] and all(
         rc["cg_iters"] == recs[0]["cg_unsharded_iters"] for rc in recs)
-    return {"ok": bool(same and worst <= ATOL and cg_ok
+    solver = recs[0]["solver"]
+    return {"ok": bool(same and worst <= ATOL and cg_ok and solver["ok"]
                        and all(rc["comm_ok"] for rc in recs)),
-            "world": world, "size": size, "cases": len(ys[0]),
+            "world": world, "size": size,
+            "cases": len(recs[0]["errs"]) + len(SOLVER_CASES),
+            "solver": solver, "solver_levels": recs[0]["solver_levels"],
             "transport": recs[0]["transport"],
             "ranks_agree": same, "worst_oracle_err": worst,
             "comm_ok": [rc["comm_ok"] for rc in recs],
@@ -326,6 +484,9 @@ def run(world: int, size: str = "full", device: str = "cuda",
             "cg_unsharded_iters": recs[0]["cg_unsharded_iters"],
             "cg_same_bits": recs[0]["cg_same_bits"],
             "devices": [rc["device"] for rc in recs]}
+
+
+SOLVER_CASES = ("amg[grid]", "amg[greedy]", "train")
 
 
 def main(argv=None) -> int:

@@ -222,15 +222,11 @@ def sell_spmm_sharded(s: SellMatrix, x: Any, mesh: DeviceMesh,
 # ----------------------------- RSELL ---------------------------------------
 
 
-def rsell_spmm_sharded(shards, x: Any, mesh: DeviceMesh) -> torch.Tensor:
-    """y = x @ A with ragged-SELL chunk shards (``formats.rsell.
-    rsell_shard_pack``) over ``mesh``: K4 on each rank's chunk stream, the
-    group's outputs gathered in (shard, local column) order, then one
-    static column permutation (K5) back to the user's order; a contiguous
-    pack (``perm_plan`` None) is in order already."""
+def rsell_rank_shard(shards, mesh: DeviceMesh) -> tuple:
+    """This rank's ragged-SELL shard on its device, uploaded once and kept
+    on ``shards``: ``((cj, ct, idx, vals), plans, perm_src)``."""
     r = _rank(mesh)
     _check_mesh(shards.n_shards, r)
-    x2d, squeeze = _as_2d(x, r.dev)
     nb_loc = shards.group_map.shape[1]
 
     def upload():
@@ -242,8 +238,19 @@ def rsell_spmm_sharded(shards, x: Any, mesh: DeviceMesh) -> torch.Tensor:
             torch.from_numpy(shards.perm_src).to(r.dev)
         return arrs, plans, src
 
-    (cj, ct, idx, vals), plans, src = _on_rank(
-        shards, ("rsell", r.tag), upload)
+    return _on_rank(shards, ("rsell", r.tag), upload)
+
+
+def rsell_spmm_sharded(shards, x: Any, mesh: DeviceMesh) -> torch.Tensor:
+    """y = x @ A with ragged-SELL chunk shards (``formats.rsell.
+    rsell_shard_pack``) over ``mesh``: K4 on each rank's chunk stream, the
+    group's outputs gathered in (shard, local column) order, then one
+    static column permutation (K5) back to the user's order; a contiguous
+    pack (``perm_plan`` None) is in order already."""
+    r = _rank(mesh)
+    (cj, ct, idx, vals), plans, src = rsell_rank_shard(shards, mesh)
+    x2d, squeeze = _as_2d(x, r.dev)
+    nb_loc = shards.group_map.shape[1]
     y = rsell_spmm(cj, ct, idx, vals, x2d.contiguous(),
                    n_padded=nb_loc * _LANES, plan=plans)
     y = _gather_cols(y, r)

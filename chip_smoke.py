@@ -222,7 +222,21 @@ and then, in the same world of one rank, sharded training and AMG:
     K1, K10 and K4 launched. After the children end, the sharded step
     (fwd + bwd) is timed beside the unsharded one, and each AMG's V-cycle
     beside its unsharded one (phase 16's hierarchy for greedy), in turns. Phase 18's launches
-    of K1, K4, K8 and K10 join their rows (``phase18_launches``).
+    of K1, K4, K8 and K10 join their rows (``phase18_launches``);
+19. runs the rest of the port on the card: (a) the gallery's 13
+    workloads at B = 1 (``bench.gallery.run_workload``: every candidate
+    held to the float64 oracle within 1e-3, then timed; no share above
+    1.05), printed as one ``{"gallery": ...}`` line (route, best, regret,
+    each row's us, share and pack seconds); (b) ``bench.dynamic``'s AWSP
+    variants at its defaults at B = 1 and 8 and ASP's at B = 1 (each
+    pattern: the device plan's y the host plan's bits, all within 1e-3);
+    (c) ``bench.scale`` at 65536^2, d = 0.02, with its train step (or the
+    gate that names its budget); (d) ``python -m tpusparse_torch check``,
+    ``mtx`` and ``solve --precond amg`` on ``data/fem_mesh_16384.mtx``
+    and ``report --sections canonical``, each a subprocess that must pass;
+    (e) the 13 examples in this process, each through its ``main()``.
+    The launches of (a), (b), (c) and (e) are counted, join ``TOTALS``, and
+    stand in each kernel row as ``phase19_launches``.
 
 Kernel against plain version: atol 1e-4 (the same products summed in
 another order); against the float64 oracle: atol 1e-3 (the repo's
@@ -2862,6 +2876,160 @@ def phase18_times(o: dict, solver: dict, card: str) -> dict:
     return out
 
 
+# -- phase 19: the gallery, dynamic serving, GB scale, the CLI, examples ---
+
+# the kernels each counted part of phase 19 must launch
+P19_NEED = {
+    "gallery": ("sell_spmv", "permute", "rsell_spmv", "bsell_spmv",
+                "bsr_spmv", "dia_spmv", "asp_spmv"),
+    "dynamic": ("awsp_spmv", "group_plan", "asp_spmv"),
+    "scale": ("rsell_spmv",),
+    "examples": ("sell_spmv", "awsp_spmv", "group_plan", "rsell_spmv",
+                 "sell_grad", "dia_spmv"),
+}
+# the GB-scale point of tpusparse/bench/scale.py's docstring (~28 M nnz)
+SCALE_POINT = dict(m=65536, density=0.02)
+MESH_MTX = "data/fem_mesh_16384.mtx"
+CLI_RUNS = (("check",), ("mtx", MESH_MTX),
+            ("solve", "--file", MESH_MTX, "--precond", "amg"),
+            ("report", "--sections", "canonical"))
+
+
+def p19_counted(part: str, launches: dict, fn):
+    """Run ``fn`` with every counter at 0; add its launches to ``TOTALS``
+    and ``launches[part]``; require the part's kernels."""
+    zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    c = read_counts(ALL_WRAPPERS)
+    tally(c)
+    launches[part] = c
+    print(f"   19 {part}: {time.perf_counter() - t0:.1f} s, launches "
+          f"{json.dumps({k: v for k, v in c.items() if v})}")
+    for name in P19_NEED[part]:
+        require(c[name] > 0, f"phase 19 {part}: no {name} launch")
+    return out
+
+
+def p19_gallery(dev) -> dict:
+    """19a: the 13 gallery workloads at B = 1, every candidate held to the
+    float64 oracle (1e-3) and timed, no share above the artifact limit
+    (``run_workload`` raises otherwise)."""
+    from tpusparse_torch.bench import gallery
+
+    out = {}
+    for name in gallery.WORKLOADS:
+        r = gallery.run_workload(name, batch=1, device=dev, verbose=False)
+        out[name] = {"routed": r["routed"], "best": r["best"],
+                     "regret_pct": r["regret_pct"], "rows": {
+                         k: {"us": v["us"], "share": v["roofline"],
+                             "pack_s": v["pack_s"],
+                             "upload_s": v.get("upload_s"),
+                             "max_abs_err": v.get("max_abs_err"),
+                             "skipped": v.get("skipped")}
+                         for k, v in r["rows"].items()}}
+    print(json.dumps({"gallery": out}))
+    return out
+
+
+def p19_dynamic(dev) -> dict:
+    """19b: AWSP's serving variants at the JAX defaults (4096^2, d = 0.5,
+    g = 2, live 1/4, 5 patterns) at B = 1 and 8, and ASP's at B = 1; each
+    pattern checked (dynamic and static the same bits, all within 1e-3)."""
+    from tpusparse_torch.bench import dynamic
+
+    out = {"awsp": dynamic.run_awsp(verbose=False, device=dev),
+           "awsp_b8": dynamic.run_awsp(batch=8, verbose=False, device=dev),
+           "asp": dynamic.run_asp(verbose=False, device=dev)}
+    print(json.dumps({"dynamic": out}))
+    return out
+
+
+def p19_scale(dev) -> dict:
+    """19c: the GB-scale run at 65536^2, d = 0.02, with its train step."""
+    from tpusparse_torch.bench import scale
+
+    rec = scale.run(**SCALE_POINT, device=dev, verbose=False)
+    print(json.dumps({"scale": rec}))
+    require("cliff" not in rec, f"phase 19c: cliff at {SCALE_POINT}")
+    require("train_us" in rec or "train_gate" in rec,
+            "phase 19c: no train step and no gate")
+    return rec
+
+
+def p19_cli() -> dict:
+    """19d: the command line in subprocesses: ``check`` (the full
+    registry), ``mtx`` and ``solve --precond amg`` on the repo's FEM mesh,
+    and the report's canonical section."""
+    import os
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for args in CLI_RUNS:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "tpusparse_torch", *args],
+                           cwd=root, capture_output=True, text=True,
+                           timeout=600)
+        text = r.stdout
+        require(r.returncode == 0, f"phase 19d: {' '.join(args)} exited "
+                f"{r.returncode}:\n{text[-2000:]}\n{r.stderr[-2000:]}")
+        ok = {"check": text.count(" OK") == len(registry(full=True)),
+              "mtx": "(OK)" in text, "solve": "[OK]" in text,
+              "report": "## Canonical" in text}[args[0]]
+        require(ok, f"phase 19d: {' '.join(args)} did not pass:\n{text}")
+        out[" ".join(args)] = {"seconds": time.perf_counter() - t0,
+                               "stdout": text.strip().splitlines()[-24:]}
+        print(f"   $ python -m tpusparse_torch {' '.join(args)}  "
+              f"({out[' '.join(args)]['seconds']:.1f} s)")
+        for line in out[" ".join(args)]["stdout"]:
+            print(f"     {line}")
+    return out
+
+
+def p19_examples(dev) -> dict:
+    """19e: the 13 examples in this process on the card, each through its
+    ``main()`` with its own checks."""
+    import importlib
+    import pkgutil
+
+    import tpusparse_torch.examples as ex
+
+    out = {}
+    for m in sorted(pkgutil.iter_modules(ex.__path__), key=lambda m: m.name):
+        out[m.name] = importlib.import_module(
+            f"tpusparse_torch.examples.{m.name}").main(device=dev)
+    require(len(out) == 13, f"{len(out)} examples, want 13")
+    print(json.dumps({"examples": out}, default=float))
+    return out
+
+
+def phase19(dev) -> dict:
+    t0 = time.perf_counter()
+    launches: dict[str, dict] = {}
+    if dev.type == "cuda":
+        print(f"-- phase 19: {torch.cuda.memory_allocated() / 1e9:.2f} GB of "
+              f"device memory held by the earlier phases")
+    print("-- phase 19a: the gallery's 13 workloads at B = 1")
+    p19_counted("gallery", launches, lambda: p19_gallery(dev))
+    print("-- phase 19b: dynamic serving (AWSP B = 1, 8; ASP)")
+    p19_counted("dynamic", launches, lambda: p19_dynamic(dev))
+    print(f"-- phase 19c: GB scale at {SCALE_POINT}")
+    scale_rec = p19_counted("scale", launches, lambda: p19_scale(dev))
+    if "train_us" in scale_rec:
+        for name in ("sell_spmv", "sell_grad"):
+            require(launches["scale"][name] > 0,
+                    f"phase 19c: the train step launched no {name}")
+    print("-- phase 19d: the command line")
+    cli = p19_cli()
+    print("-- phase 19e: the 13 examples")
+    p19_counted("examples", launches, lambda: p19_examples(dev))
+    seconds = time.perf_counter() - t0
+    print(f"   phase 19 took {seconds:.1f} s")
+    return {"launches": launches, "cli_seconds": {
+        k: v["seconds"] for k, v in cli.items()}, "seconds": seconds}
+
+
 def kernel_rows(results, launches, batch_of) -> list[dict]:
     rows = []
     for name, res in results.items():
@@ -2963,6 +3131,8 @@ def main() -> int:
     sharded = sharded_path(d, dev, solver=solver,
                            train=(csr_a, a, apply, params, resync))
 
+    p19 = phase19(dev)
+
     kernels = kernel_rows(results, launches, {}) + \
         kernel_rows(skew_results, skew_launches, PATH_BATCH) + \
         kernel_rows(block_results, block_launches, PATH_BATCH) + \
@@ -2978,6 +3148,8 @@ def main() -> int:
                 registry_blocks[row["name"]]["by_batch"].items()}}
     for row in kernels:
         row["launches_all_paths"] = TOTALS[row["name"]]
+        row["phase19_launches"] = {part: c[row["name"]]
+                                   for part, c in p19["launches"].items()}
         if row["name"] in SHARDED_WRAPPERS:
             row["sharded_launches"] = {
                 "world1_nccl": sharded["world1_launches"][row["name"]],

@@ -539,6 +539,36 @@ def test_awsp_device_plan_has_no_host_sync(cuda):
     assert int(torch.count_nonzero(y0)) == 0
 
 
+@pytest.mark.parametrize("partition", ["n", "m", "ring"])
+def test_dense_spmv_sharded_device_operands_make_no_host_trip(cuda,
+                                                              partition):
+    """Dense ``spmv_sharded`` on a device A and x at world 1 (NCCL) copies
+    nothing back to the host, and gives the host operands' bits."""
+    import torch.distributed as dist
+
+    from tpusparse_torch.parallel import initialize, make_mesh, spmv_sharded
+
+    started = not dist.is_initialized()
+    initialize()
+    try:
+        mesh = make_mesh({"n": 1})
+        a, x, want = _workload("small", 1)
+        at, xt = torch.from_numpy(a).to(cuda), torch.from_numpy(x[0]).to(cuda)
+        y_host = spmv_sharded(a, x[0], mesh, partition)
+        spmv_sharded(at, xt, mesh, partition)       # the collective's setup
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = spmv_sharded(at, xt, mesh, partition)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.equal(y, y_host)
+        _close(y, want[0], 1e-3)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
 def _live_x(m, g, live, batch, seed):
     """x (batch, m) live in a random round(live * ng) of the ng groups of
     g*128 rows, the pattern shared by the batch rows."""

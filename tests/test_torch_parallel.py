@@ -542,6 +542,74 @@ def test_world1_in_process(world1, small_ops):
                                    rtol=0, atol=ATOL_ORACLE, err_msg=case)
 
 
+def _dense_calls(mesh) -> dict[str, np.ndarray]:
+    """Dense ``spmv_sharded`` on the JAX fixture's operands, each partition
+    from host (numpy) and from tensor operands; the two give the same
+    bits."""
+    import torch
+
+    from tpusparse_torch.parallel import spmv_sharded
+    from tpusparse_torch.testing import generators
+
+    m = 128 * WORLD
+    a = generators.random_sparse_matrix(m, m, density=0.5, seed=0)
+    x = generators.random_sparse_vector(m, density=0.5, seed=0)
+    out = {}
+    for p in ("n", "m", "ring"):
+        y_host = spmv_sharded(a, x, mesh, p)
+        y = spmv_sharded(torch.from_numpy(a), torch.from_numpy(x), mesh, p)
+        assert torch.equal(y, y_host), p
+        out[f"dense[{p}]"] = y.numpy()
+    return out
+
+
+def _dense_worker(port: int, rank: int, world: int, out: str) -> int:
+    import torch.distributed as dist
+
+    from tpusparse_torch.parallel import initialize, make_mesh
+
+    initialize(f"127.0.0.1:{port}", world, rank, device="cpu")
+    res = _dense_calls(make_mesh({"n": world}))
+    np.savez(os.path.join(out, f"dense{rank}.npz"), **res)
+    dist.destroy_process_group()
+    return 0
+
+
+@pytest.fixture(scope="module")
+def dense_world2(tmp_path_factory):
+    """``_dense_calls`` on 2 gloo ranks (this file run as a script)."""
+    out = str(tmp_path_factory.mktemp("dense"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ,
+           "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "dense", str(port),
+         str(r), "2", out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env, cwd=ROOT) for r in range(2)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{log}"
+    return [dict(np.load(os.path.join(out, f"dense{r}.npz")))
+            for r in range(2)]
+
+
+@pytest.mark.parametrize("partition", ["n", "m", "ring"])
+def test_dense_sharded_from_host_and_tensors_matches_jax(
+        partition, world1, dense_world2, jax_results):
+    """Dense ``spmv_sharded`` at world 1 (this process) and on 2 gloo
+    ranks, from host and from tensor operands (the same bits), within 1e-4
+    of the JAX package's on its 4-device mesh; both ranks agree."""
+    case = f"dense[{partition}]"
+    want = np.asarray(jax_results[case])
+    got1 = _dense_calls(world1[1])[case]
+    np.testing.assert_allclose(got1, want, rtol=0, atol=ATOL_JAX)
+    r0, r1 = (r[case] for r in dense_world2)
+    np.testing.assert_array_equal(r0, r1)
+    np.testing.assert_allclose(r0, want, rtol=0, atol=ATOL_JAX)
+
+
 @pytest.mark.parametrize("partition", ["n", "m"])
 def test_slabs_match_jax(partition):
     from tpusparse.parallel import launch as jlaunch
@@ -941,5 +1009,8 @@ def test_commmodel_cases_cover_both_halo_bodies():
 
 
 if __name__ == "__main__":
+    if sys.argv[1] == "dense":
+        sys.exit(_dense_worker(int(sys.argv[2]), int(sys.argv[3]),
+                               int(sys.argv[4]), sys.argv[5]))
     sys.exit(_worker(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
                      sys.argv[4]))

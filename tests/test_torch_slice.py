@@ -24,9 +24,9 @@ from tpusparse_torch.config import SpmvConfig
 from tpusparse_torch.testing.tester import KernelEntry, SpmvTester
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the modules of the router's banded and block-structured routes and of
-# the training path and of the parallel layer, which the import rule must
-# reach as well
+# the modules of the router's banded and block-structured routes, of the
+# training path, of the parallel layer and of the benches, the command line
+# and the examples, which the import rule must reach as well
 NEW_MODULES = ("formats.bsr", "formats.tcsr", "formats.dia",
                "kernels.bsr_spmv", "kernels.bsell_spmv", "kernels.dia_spmv",
                "autodiff", "nn", "prune", "graph", "kernels.sell_grad",
@@ -36,7 +36,12 @@ NEW_MODULES = ("formats.bsr", "formats.tcsr", "formats.dia",
                "solve", "eig", "amg", "parallel", "parallel.mesh",
                "parallel.comm", "parallel.launch", "parallel.partition",
                "parallel.sparse", "parallel.dryrun", "bench.shard_overhead",
-               "bench.scaling", "bench.commmodel")
+               "bench.scaling", "bench.commmodel", "bench.gallery",
+               "bench.dynamic", "bench.scale", "cli", "__main__",
+               "examples") + tuple(
+    f"examples.{m[:-3]}" for m in sorted(os.listdir(os.path.join(
+        os.path.dirname(tpusparse_torch.__file__), "examples")))
+    if m.startswith("ex") and m.endswith(".py"))
 JAX_TWIN = {"dense_torch": "dense_xla", "dense_cuda": "dense_pallas",
             "sell_cuda": "sell_pallas", "awsp_cuda": "awsp_pallas"}
 FULL_TWIN = {"ell_torch": "ell_xla", "bell_cuda": "bell_pallas",

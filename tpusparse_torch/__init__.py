@@ -8,7 +8,8 @@ sparse-weight training (``linear_map``, ``trainable_linear``,
 path (``solve``, ``eig``, ``amg``, ``reorder``, pack persistence in
 ``formats.io`` and the native host converters in ``native``), with kernels
 written by hand for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first
-use. Entry
+use; the benches (``bench``), the command line (``python -m
+tpusparse_torch``) and the examples (``examples``) drive it. Entry
 points run on the GPU unless the caller passes ``device="cpu"``, which runs
 each kernel's plain PyTorch version. The package imports torch and numpy
 only; the JAX package ``tpusparse`` is its reference and is never imported.

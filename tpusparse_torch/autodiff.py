@@ -145,13 +145,29 @@ class _TwinPack:
         order = np.argsort(self.csr.col_idx, kind="stable")
         t_map = np.full(self.s_t.size, -1, dtype=np.int64)
         t_map[self.flat_t] = self.flat_f[order]
-        return np.clip(t_map, 0, None).astype(np.int32), t_map >= 0
+        live = t_map >= 0
+        np.maximum(t_map, 0, out=t_map)
+        # int32 while every slot of vals has an int32 flat index
+        gather = t_map.astype(np.int32) if self.s_f.size < 1 << 31 else t_map
+        return gather, live
+
+
+def twin_params(pack: _TwinPack, dev: torch.device) -> tuple[dict, dict]:
+    """What a product and its gradients need on the device: ``statics``
+    (idx, idx_t, s_f, s_t) and ``params`` (vals, vals_t; no grad yet)."""
+    def to(a):
+        return torch.as_tensor(a).to(dev)
+
+    return ({"idx": to(pack.fmt["idx"]), "idx_t": to(pack.fmt_t["idx"]),
+             "s_f": to(pack.s_f), "s_t": to(pack.s_t)},
+            {"vals": to(pack.fmt["vals"]), "vals_t": to(pack.fmt_t["vals"])})
 
 
 def twin_leaves(pack: _TwinPack, dev: torch.device) -> dict[str, Any]:
-    """The device tensors of a twin pack: ``statics`` (idx, idx_t, s_f,
-    s_t), ``params`` (vals, vals_t; no grad yet), ``masks``, the re-tie map
-    (``gather``, ``live``, shaped as vals_t) and the matrix ``shape``."""
+    """The device tensors of a twin pack: ``statics`` and ``params`` (see
+    ``twin_params``), ``masks``, the re-tie map (``gather``, ``live``,
+    shaped as vals_t) and the matrix ``shape``."""
+    statics, params = twin_params(pack, dev)
     gather, live = pack.retie_map()
     t_shape = pack.fmt_t["vals"].shape
 
@@ -159,10 +175,7 @@ def twin_leaves(pack: _TwinPack, dev: torch.device) -> dict[str, Any]:
         return torch.as_tensor(a).to(dev)
 
     return {
-        "statics": {"idx": to(pack.fmt["idx"]), "idx_t": to(pack.fmt_t["idx"]),
-                    "s_f": to(pack.s_f), "s_t": to(pack.s_t)},
-        "params": {"vals": to(pack.fmt["vals"]),
-                   "vals_t": to(pack.fmt_t["vals"])},
+        "statics": statics, "params": params,
         "masks": {"vals": to(pack.mask_f), "vals_t": to(pack.mask_t)},
         "gather": to(gather), "live": to(live.reshape(t_shape)),
         "shape": pack.fmt["shape"],

@@ -374,19 +374,11 @@ def _skew(dev):
 
 def x_pool(m: int, ng: int, span: int, live: float, batch: int,
            seed: int = 7) -> np.ndarray:
-    """The first X of the JAX sweep's pool (``tpusparse/bench/dynamic.py:
-    _x_pool``): live in a random ``max(1, round(live * ng))`` of the ng
-    groups, uniform values there, the pattern shared by the batch rows;
-    (batch, m)."""
-    rng = np.random.default_rng(seed)
-    k = max(1, int(round(live * ng)))
-    groups = rng.choice(ng, size=k, replace=False)
-    x = np.zeros((batch, m), dtype=np.float32)
-    for gi in groups:
-        lo = gi * span
-        x[:, lo:min(lo + span, m)] = rng.uniform(
-            -1.0, 1.0, size=(batch, min(span, m - lo)))
-    return x
+    """The first X of the JAX sweep's pool (``bench.dynamic._x_pool``, the
+    JAX package's), (batch, m)."""
+    from tpusparse_torch.bench.dynamic import _x_pool
+
+    return np.atleast_2d(_x_pool(m, ng, span, live, 1, seed, batch)[0])
 
 
 def sweep_matrix() -> np.ndarray:

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import statistics
+import time
 from typing import Any, Callable
 
 import torch
@@ -85,6 +86,14 @@ def device_time(fn: Callable[..., Any], *args: Any, name: str = "kernel",
     ms = statistics.median(s.elapsed_time(e) for s, e in events)
     return BenchResult(name, ms / 1e3, bytes_moved=bytes_moved, flops=flops,
                        nnz=nnz, device_kind=torch.cuda.get_device_name())
+
+
+def run_id(device=None) -> str:
+    """Stamp of one bench session: the device's name and the wall date and
+    minute, so records say which numbers came from the same run."""
+    dev = torch.device("cuda" if device is None else device)
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    return f"{kind.replace(' ', '')}-{time.strftime('%Y%m%d-%H%M')}"
 
 
 def _require_cuda() -> None:

@@ -6,9 +6,10 @@ sharded call (``parallel.spmv_sharded`` for ``dense``,
 ``sweep_scaling`` runs inside a started world (``parallel.initialize``,
 every rank calling it) and takes, for each D, the mesh of ranks 0 .. D-1,
 which run the point while the others wait. Operands are made from the same
-seed on every rank; each rank uploads its own shard once, before the timed
-calls (the dense partition takes its host A at every call, as
-``spmv_sharded`` does, so its points include that slab's upload).
+seed on every rank, and placed on the rank's device once, before the
+timed calls: a SELL point uploads the rank's shard (its first call), a
+dense point uploads A (``spmv_sharded`` then takes the rank's slab as a
+view on the device), so no timed call moves an operand from the host.
 
 Timing: CUDA events on a card (``bench.runner.device_time``, with the
 sharded calls' longer spin, ``shard_overhead.SPIN``), wall time between
@@ -32,10 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import os
-import socket
 import statistics
-import subprocess
 import sys
 import time
 from typing import Any, Callable
@@ -78,7 +76,8 @@ def _prepare(a: np.ndarray, x: np.ndarray, mesh, partition: str,
     if kernel == "dense":
         from tpusparse_torch.parallel import spmv_sharded
 
-        return lambda: spmv_sharded(a, xt, mesh, partition)
+        at = torch.from_numpy(a).to(dev)
+        return lambda: spmv_sharded(at, xt, mesh, partition)
     raise ValueError(f"unknown kernel {kernel!r}")
 
 
@@ -154,7 +153,7 @@ def sweep_scaling(*, mode: str = "weak", kernel: str = "dense",
             x = generators.random_sparse_vector(m, density=density,
                                                 seed=seed)
             fn = _prepare(a, x, mesh, partition, kernel)
-            fn()                    # each rank uploads its shard once
+            fn()                    # a SELL rank uploads its shard here
             seconds = [_time(fn, dev, mesh.get_group("n"), reps)]
         dist.broadcast_object_list(seconds, src=0)
         points.append(ScalePoint(devices=d, m=m, n=n, seconds=seconds[0]))
@@ -218,29 +217,15 @@ def main(argv=None) -> int:
         from tpusparse_torch.kernels import _build
 
         _build.build()
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
-    rest = [a for a in (argv if argv is not None else sys.argv[1:])]
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "tpusparse_torch.bench.scaling", *rest,
-         "--rank", str(r), "--port", str(port)],
-        env={**env, "LOCAL_RANK": str(r)}, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(args.world)]
+    from tpusparse_torch.parallel.launch import spawn_local
+
     try:
-        logs = [p.communicate(timeout=1800)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        if p.returncode != 0:
-            print(f"scaling: rank {r} failed:\n{log[-3000:]}",
-                  file=sys.stderr)
-            return 1
+        logs = spawn_local("tpusparse_torch.bench.scaling",
+                           list(argv if argv is not None else sys.argv[1:]),
+                           args.world)
+    except RuntimeError as e:
+        print(f"scaling: {e}", file=sys.stderr)
+        return 1
     print(logs[0].strip().splitlines()[-1])
     return 0
 

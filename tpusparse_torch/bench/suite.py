@@ -113,16 +113,17 @@ def registry(full: bool = False) -> list[dict[str, Any]]:
 
 
 def sweep(cfg: SpmvConfig | None = None, verbose: bool = True,
-          full: bool = False) -> list[BenchResult]:
-    """Time the registered kernels (``full``: the full registry) on the
-    configured workload (GPU only)."""
+          full: bool = False,
+          entries: list[dict[str, Any]] | None = None) -> list[BenchResult]:
+    """Time ``entries`` (default: the registry, ``full`` or headline) on
+    the configured workload (GPU only)."""
     cfg = cfg or SpmvConfig()
     dev = resolve_device(None)
     a, x = _canonical_workload(cfg)
     x_dev = torch.as_tensor(x, device=dev)
     nnz = int((a != 0).sum())
     results = []
-    for e in registry(full=full):
+    for e in entries if entries is not None else registry(full=full):
         fmt = e["prepare"](a, dev)
         nbytes = format_bytes(fmt)
         r = device_time(e["run"], fmt, x_dev, name=e["name"],

@@ -13,7 +13,9 @@ here: ``_LEAVES[kind](fmt) -> (leaves, aux)`` writes the JAX layout, and
 ``_REBUILD[kind](aux, leaves) -> dict`` reads it into the dict that
 ``convert.from_reference_arrays`` turns into the port's object on a
 device. ``encode``/``decode`` are the file-agnostic halves, reused by
-``amg.SmoothedAggregationAMG.save/load``.
+``amg.SmoothedAggregationAMG.save/load`` and by ``to_device``, which
+uploads a pack made on the host (the benches time packing and the upload
+apart).
 """
 
 from __future__ import annotations
@@ -258,6 +260,12 @@ def decode(kind: str, aux_str: str, dtypes_str: str | None,
             f"incompatible tpusparse version; re-pack from the source "
             f"matrix") from e
     return from_reference_arrays(d, device=device)
+
+
+def to_device(fmt, device=None) -> Any:
+    """``fmt`` rebuilt from its leaves on ``device`` (None: the GPU)."""
+    kind, aux_r, dtypes_r, arrays = encode(fmt)
+    return decode(kind, aux_r, dtypes_r, arrays, device=device)
 
 
 def load(path: str, device=None) -> Any:

@@ -11,11 +11,16 @@ caller passes ``backend="gloo"`` (its collectives then pass through host
 memory, ``comm.py``) or ``device="cpu"`` (gloo on the CPU). Every rank
 makes the same seeded global operand and slices its own slab
 (``host_local_matrix``), so slabs tile one logical matrix.
+``spawn_local`` starts a world of ranks on this host, one child process
+each (``python -m MODULE ... --rank R --port P``).
 """
 
 from __future__ import annotations
 
 import os
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -140,3 +145,32 @@ def host_local_matrix(m: int, n: int, *, density: float = 0.5, seed: int = 0,
                                         distribution=distribution)
     rs, cs = process_slab(m, n, partition=partition, **slab_kw)
     return a[rs, cs]
+
+
+def spawn_local(module: str, argv: list[str], world: int,
+                timeout: float = 1800) -> list[str]:
+    """Run ``python -m module *argv --rank r --port P`` for r in 0 .. world-1
+    on this host (``LOCAL_RANK=r``, a free local port for the rank-0
+    store) and return each rank's output. Every child has ended when it
+    returns; raises ``RuntimeError`` with the log of a rank that failed."""
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", module, *argv, "--rank", str(r), "--port",
+         str(port)], env={**env, "LOCAL_RANK": str(r)},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"{module}: rank {r} failed:\n{log[-3000:]}")
+    return logs

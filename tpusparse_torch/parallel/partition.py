@@ -12,9 +12,12 @@ the mesh's ``"n"`` dimension of D ranks:
   multiplies the matching row band of its slab: D - 1 shifts, then the last
   band, as the JAX package does.
 
-Each rank takes the same host A and x, uploads only its own slab, and
-returns the full y (every rank the same: the JAX function's replicated
-view), gathered over the group. Dimensions that do not split evenly are
+Each rank takes the same A and x and returns the full y (every rank the
+same: the JAX function's replicated view), gathered over the group. A and
+x may lie on the host, where each rank uploads only its own slab and
+chunk on every call, or already on the rank's device (the JAX function's
+placed arrays), where the slab is a view taken on the device and nothing
+crosses to the host. Dimensions that do not split evenly are
 zero-padded, as the JAX package pads them. The local product is
 ``torch.matmul`` in fp32 with TF32 off, as the JAX package leaves it to
 ``jnp.dot`` outside any kernel.
@@ -40,12 +43,6 @@ class Partition(str, enum.Enum):
     RING = "ring"
 
 
-def _host(a: Any) -> torch.Tensor:
-    """A host (CPU) fp32 tensor of a numpy array or tensor."""
-    t = torch.as_tensor(a)
-    return t.cpu() if t.is_cuda else t
-
-
 def _local_matvec(a_loc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.matmul(x, a_loc)
@@ -61,10 +58,12 @@ def spmv_sharded(a: Any, x: Any, mesh: DeviceMesh | None = None,
     dev = mesh_device(mesh)
     group = mesh.get_group("n")
     d, me = axis_size(mesh, "n"), mesh.get_local_rank("n")
-    a, x = _host(a), _host(x)
+    a, x = torch.as_tensor(a), torch.as_tensor(x)
     m, n_orig = a.shape
-    # rows and columns that do not split evenly are zero-padded: padded
-    # rows multiply zero x entries, padded output columns are cut off
+    # rows and columns that do not split evenly are zero-padded, on the side
+    # that holds A: padded rows multiply zero x entries, padded output
+    # columns are cut off. Slicing comes before ``.to(dev)``, so a host A
+    # uploads only the rank's slab and a device A is never copied.
     if partition in (Partition.M, Partition.RING) and m % d:
         a = F.pad(a, (0, 0, 0, -m % d))
         x = F.pad(x, (0, -m % d))

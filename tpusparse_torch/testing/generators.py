@@ -9,10 +9,13 @@ callers move it to a device.
 - ``banded``: nonzeros concentrated in a diagonal band.
 - ``blocks``: block-structured sparsity.
 
-Beside them: ``stencil_csr`` (lattice Laplacians, the banded workload DIA
-serves), ``mesh_csr`` (an unstructured triangle-mesh Laplacian, AMG's greedy
-workload) and ``block_pruned_matrix`` (block-pruned weights, the workload
-TCSR serves).
+Beside them, the real-topology families of the gallery
+(``bench/gallery.py``): ``rmat_csr`` (R-MAT graphs: hubs and locality),
+``stencil_csr`` (lattice Laplacians, the banded workload DIA serves),
+``mesh_csr`` (an unstructured triangle-mesh Laplacian, AMG's greedy
+workload), ``banded_defects_csr`` (a band plus sparse long-range
+defects), ``nm_pruned_matrix`` (N:M pruned weights) and
+``block_pruned_matrix`` (block-pruned weights, the workload TCSR serves).
 """
 
 from __future__ import annotations
@@ -105,6 +108,42 @@ def random_sparse_csr(m: int, n: int, density: float = 0.5, seed: int = 0,
                      col_idx=mi.astype(np.int32), values=vals)
 
 
+def rmat_csr(scale: int, edge_factor: int = 16, seed: int = 0,
+             a: float = 0.57, b: float = 0.19, c: float = 0.19,
+             symmetric: bool = False, dtype=np.float32) -> "CsrMatrix":
+    """R-MAT (recursive-matrix / Kronecker) graph adjacency: n = 2^scale
+    nodes, ~n*edge_factor edges. The Graph500 parameters (0.57, 0.19, 0.19)
+    give the hub-plus-locality degree skew real web/social/netlist graphs
+    have — a few super-connected columns and a heavy diagonal-ish mass —
+    which i.i.d. and per-column-powerlaw masks both miss (hubs correlate
+    across rows AND columns here). Vectorized quadrant descent; duplicate
+    edges are merged, so nnz lands slightly under n*edge_factor."""
+    from tpusparse_torch.formats.csr import CsrMatrix
+
+    rng = _rng(seed ^ 0x514A7)
+    n = 1 << scale
+    ne = n * edge_factor
+    rows = np.zeros(ne, dtype=np.int64)
+    cols = np.zeros(ne, dtype=np.int64)
+    for level in range(scale):
+        u = rng.random(ne)
+        top = u < (a + b)                      # row bit stays 0
+        # column bit drawn conditionally in one pass: P(col=1 | top) =
+        # b/(a+b), P(col=1 | bottom) = d/(c+d) with d = 1-a-b-c
+        v = rng.random(ne)
+        d = 1.0 - a - b - c
+        col_bit = np.where(top, v < b / (a + b), v < d / (c + d))
+        rows |= (~top).astype(np.int64) << level
+        cols |= col_bit.astype(np.int64) << level
+    if symmetric:
+        rows, cols = np.concatenate([rows, cols]), np.concatenate([cols, rows])
+    pos = np.unique(rows * n + cols)
+    r, ci = pos // n, pos % n
+    vals = rng.uniform(-1.0, 1.0, size=r.size).astype(dtype)
+    vals[vals == 0.0] = 1e-3
+    return CsrMatrix.from_coo(n, n, r, ci, vals)
+
+
 def stencil_csr(dims: tuple[int, ...], points: int | None = None,
                 eps: float = 1.0, eps_axis: int = 0, seed: int = 0,
                 dtype=np.float32) -> "CsrMatrix":
@@ -183,6 +222,55 @@ def mesh_csr(nx: int, ny: int, seed: int = 0, jitter: float = 0.35,
     ci = np.concatenate([cols, np.arange(n, dtype=np.int64)])
     v = np.concatenate([-np.ones(rows.size), deg + 1e-3]).astype(dtype)
     return CsrMatrix.from_coo(n, n, r, ci, v)
+
+
+def banded_defects_csr(n: int, bandwidth: int = 16,
+                       defect_density: float = 1e-3, seed: int = 0,
+                       dtype=np.float32) -> "CsrMatrix":
+    """Banded operator plus sparse long-range 'defect' couplings (circuit /
+    perturbed-physics style). The defects give the matrix O(n) distinct
+    diagonals at negligible nnz — a pure-DIA router that only counts
+    diagonals would store the whole n x n; the structural fill guard must
+    catch it."""
+    from tpusparse_torch.formats.csr import CsrMatrix
+
+    rng = _rng(seed ^ 0xBADE)
+    rows_l, cols_l = [np.arange(n, dtype=np.int64)], [np.arange(n, dtype=np.int64)]
+    for off in range(1, bandwidth + 1):
+        r = np.arange(n - off, dtype=np.int64)
+        rows_l += [r, r + off]
+        cols_l += [r + off, r]
+    nd = int(round(n * n * defect_density))
+    pos = np.unique(rng.integers(0, n * n, size=nd, dtype=np.int64))
+    rows_l.append(pos // n)
+    cols_l.append(pos % n)
+    rows = np.concatenate(rows_l)
+    cols = np.concatenate(cols_l)
+    pos = np.unique(rows * n + cols)
+    r, ci = pos // n, pos % n
+    vals = rng.uniform(-1.0, 1.0, size=r.size).astype(dtype)
+    vals[vals == 0.0] = 1e-3
+    return CsrMatrix.from_coo(n, n, r, ci, vals)
+
+
+def nm_pruned_matrix(m: int, n: int, n_keep: int = 2, group: int = 4,
+                     seed: int = 0, dtype=np.float32) -> np.ndarray:
+    """N:M semi-structured pruned weight matrix (e.g. 2:4): in every
+    ``group`` consecutive entries along the contraction axis (rows of A,
+    the input dim of ``Y = X @ A``), exactly ``n_keep`` survive. This is
+    the sparsity modern accelerator pruning recipes emit; its per-window
+    nnz is perfectly uniform (w = W_dense * n_keep/group exactly), the
+    friendliest case for flat SELL."""
+    if m % group:
+        raise ValueError(f"m={m} not a multiple of group={group}")
+    rng = _rng(seed ^ 0x2424)
+    vals = rng.uniform(-1.0, 1.0, size=(m, n)).astype(dtype)
+    scores = rng.random((m // group, group, n))
+    rank = np.argsort(np.argsort(scores, axis=1), axis=1)
+    mask = (rank < n_keep).reshape(m, n)
+    a = vals * mask
+    a[mask & (a == 0.0)] = 1e-3
+    return a.astype(dtype)
 
 
 def block_pruned_matrix(m: int, n: int, block: int = 128,

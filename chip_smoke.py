@@ -2952,8 +2952,12 @@ def p19_scale(dev) -> dict:
     rec = scale.run(**SCALE_POINT, device=dev, verbose=False)
     print(json.dumps({"scale": rec}))
     require("cliff" not in rec, f"phase 19c: cliff at {SCALE_POINT}")
-    require("train_us" in rec or "train_gate" in rec,
-            "phase 19c: no train step and no gate")
+    # the step runs at this point: a gate here is a failure, not a result
+    require("train_us" in rec, f"phase 19c: the train step did not run "
+            f"({rec.get('train_gate')})")
+    require(rec["train_y_err"] <= 1e-3 and rec["train_grad_err"] <= 1e-3,
+            f"phase 19c: the train step's y {rec['train_y_err']} or value "
+            f"gradients {rec['train_grad_err']} off the oracle")
     return rec
 
 
@@ -3015,11 +3019,10 @@ def phase19(dev) -> dict:
     print("-- phase 19b: dynamic serving (AWSP B = 1, 8; ASP)")
     p19_counted("dynamic", launches, lambda: p19_dynamic(dev))
     print(f"-- phase 19c: GB scale at {SCALE_POINT}")
-    scale_rec = p19_counted("scale", launches, lambda: p19_scale(dev))
-    if "train_us" in scale_rec:
-        for name in ("sell_spmv", "sell_grad"):
-            require(launches["scale"][name] > 0,
-                    f"phase 19c: the train step launched no {name}")
+    p19_counted("scale", launches, lambda: p19_scale(dev))
+    for name in ("sell_spmv", "sell_grad"):
+        require(launches["scale"][name] > 0,
+                f"phase 19c: the train step launched no {name}")
     print("-- phase 19d: the command line")
     cli = p19_cli()
     print("-- phase 19e: the 13 examples")

@@ -192,6 +192,27 @@ def test_sgd_keeps_twins_tied_and_resync_reties(jax_train):
                                rtol=0, atol=1e-4)   # the live transpose
 
 
+def test_resync_int64_gather_is_the_int32_bits(jax_train, monkeypatch):
+    """Past ``INT32_SLOTS`` slots the re-tie map keeps int64 indices;
+    lowered to 1, this small pack takes that branch, and ``resync`` must
+    give the int32 map's bits."""
+    from tpusparse_torch import autodiff
+
+    c = _port(jax_train[1])
+    nudge = torch.from_numpy(_target(_TwinPack(c).fmt["vals"].shape, 31))
+    out = {}
+    for limit in (autodiff.INT32_SLOTS, 1):
+        monkeypatch.setattr(autodiff, "INT32_SLOTS", limit)
+        gather, _ = _TwinPack(c).retie_map()
+        _, params, masks, resync = trainable_linear(c, device=CPU)
+        with torch.no_grad():
+            params["vals"].add_(torch.where(masks["vals"], nudge, 0.0))
+        out[gather.dtype] = resync(params)["vals_t"].detach().clone()
+    assert set(out) == {np.dtype(np.int32), np.dtype(np.int64)}
+    a, b = out.values()
+    assert torch.equal(a, b) and a.any()
+
+
 def test_jax_trained_params_load_into_the_port(jax_train):
     a, jc, _, jparams, _, runs = jax_train
     x, t, _, jdp, _ = runs["spmv"]

@@ -48,6 +48,22 @@ def test_scale_matches_jax(full_run, jax_ref):
     assert rec["train_operands_gb"] > rec["format_gb"]
 
 
+def test_train_step_held_to_the_oracle(full_run):
+    assert full_run["train_y_err"] <= 1e-5
+    assert full_run["train_grad_err"] <= 1e-5
+
+
+def test_wrong_value_gradient_fails_the_run(monkeypatch):
+    """The sampled gradient check catches value gradients 1% off."""
+    from tpusparse_torch import autodiff
+
+    real = autodiff.sell_dvals
+    monkeypatch.setattr(autodiff, "sell_dvals",
+                        lambda s, x, g: real(s, x, g) * 1.01)
+    with pytest.raises(AssertionError, match="train_grad_err"):
+        scale.run(m=1024, density=D, seed=SEED, device="cpu", verbose=False)
+
+
 def test_cliff_under_a_small_budget(jax_ref):
     rec = scale.run(m=M, density=D, seed=SEED, device="cpu", verbose=False,
                     budget=int(jax_ref["predicted"]) - 1)

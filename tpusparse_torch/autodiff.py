@@ -117,6 +117,11 @@ def _signed_idx(idx: np.ndarray,
     return np.where(mask, idx, -1).astype(np.int8), mask
 
 
+# vals of fewer slots than this re-tie through an int32 gather map; at and
+# past it the map keeps int64 indices (int32 would wrap)
+INT32_SLOTS = 1 << 31
+
+
 class _TwinPack:
     """One packing pass for the twin-layout trainable paths, on the host.
 
@@ -148,7 +153,8 @@ class _TwinPack:
         live = t_map >= 0
         np.maximum(t_map, 0, out=t_map)
         # int32 while every slot of vals has an int32 flat index
-        gather = t_map.astype(np.int32) if self.s_f.size < 1 << 31 else t_map
+        gather = t_map.astype(np.int32) if self.s_f.size < INT32_SLOTS \
+            else t_map
         return gather, live
 
 

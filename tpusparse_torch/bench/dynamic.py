@@ -46,7 +46,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from tpusparse_torch.bench.roofline import ARTIFACT_SHARE, roofline_fraction
+from tpusparse_torch.bench.roofline import checked_share, roofline_fraction
 from tpusparse_torch.bench.runner import device_time, run_id
 from tpusparse_torch.utils import resolve_device
 
@@ -128,9 +128,7 @@ def _cycled(call, fmt, xs: list[torch.Tensor]):
 def _timed(rows: dict, key: str, fn, nbytes: int, reps: int,
            verbose: bool) -> None:
     r = device_time(fn, name=key, bytes_moved=int(nbytes), reps=reps)
-    if roofline_fraction(nbytes, r.seconds) > ARTIFACT_SHARE:
-        raise AssertionError(f"{key}: {r} reads above the bytes bound, an "
-                             f"artifact")
+    checked_share(nbytes, r.seconds, f"{key}: {r}")
     rows[key] = (r.seconds, nbytes)
     if verbose:
         print(f"  {r}", file=sys.stderr)

@@ -48,8 +48,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from tpusparse_torch.bench.roofline import (ARTIFACT_SHARE, format_bytes,
-                                            roofline_fraction)
+from tpusparse_torch.bench.roofline import checked_share, format_bytes
 from tpusparse_torch.bench.runner import device_time, run_id
 from tpusparse_torch.bench.suite import _fmt_run, _full_plan_run
 from tpusparse_torch.formats.io import to_device
@@ -260,12 +259,8 @@ def run_workload(name: str, *, batch: int = 1, device=None,
                 if verbose:
                     print(f"  {r} | pack {pack_s:.2f} s", file=sys.stderr)
             med = float(np.median(secs))
-            share = roofline_fraction(step_bytes, med)
-            if share > ARTIFACT_SHARE:
-                raise AssertionError(
-                    f"{name}/{e['name']} B={batch}: share {share:.3f} of "
-                    f"the bytes bound is above {ARTIFACT_SHARE}: an "
-                    f"artifact, not a result")
+            share = checked_share(step_bytes, med,
+                                  f"{name}/{e['name']} B={batch}")
             row.update(us=med * 1e6, roofline=share)
             if len(secs) > 1:
                 row.update(trials=len(secs), us_min=min(secs) * 1e6,

@@ -55,8 +55,8 @@ import numpy as np
 import torch
 
 from tpusparse_torch.bench.roofline import (ARTIFACT_SHARE, card_info,
-                                            detect_hbm_gbps, format_bytes,
-                                            roofline_fraction)
+                                            checked_share, detect_hbm_gbps,
+                                            format_bytes)
 from tpusparse_torch.bench.runner import BenchResult, device_time, run_id
 from tpusparse_torch.formats.sell import SellMatrix
 from tpusparse_torch.kernels.dense import dense_torch
@@ -279,16 +279,8 @@ _HDR = ("| kernel | us | GB/s (own bytes) | share of the bytes bound | "
         "Gnnz/s |\n|---|---|---|---|---|")
 
 
-def _share(nbytes: int, seconds: float) -> float:
-    share = roofline_fraction(nbytes, seconds)
-    if share > ARTIFACT_SHARE:
-        raise AssertionError(f"share {share:.3f} of the bytes bound is above "
-                             f"{ARTIFACT_SHARE}: an artifact, not a result")
-    return share
-
-
 def _row(label: str, r: BenchResult) -> str:
-    share = _share(r.bytes_moved, r.seconds)
+    share = checked_share(r.bytes_moved, r.seconds, label)
     return (f"| {label} | {r.seconds * 1e6:.2f} | {r.gbps:.0f} | "
             f"{share:.3f} | {r.nnz_per_s / 1e9:.2f} |")
 
@@ -453,7 +445,7 @@ def _crossover(out, dev) -> None:
                          bytes_moved=format_bytes(sf))
         print(f"| {d} | {rd.seconds * 1e6:.2f} | {rs.seconds * 1e6:.2f} | "
               f"{rs.seconds / rd.seconds:.2f} | "
-              f"{_share(rs.bytes_moved, rs.seconds):.3f} |", file=out)
+              f"{checked_share(rs.bytes_moved, rs.seconds, rs.name):.3f} |", file=out)
         print(f"  .. d={d}: dense {rd.seconds * 1e6:.1f} us, sell "
               f"{rs.seconds * 1e6:.1f} us", file=sys.stderr)
     print("\n`auto_format`'s density threshold (0.65) was measured on the "
@@ -487,7 +479,7 @@ def _training(out, dev) -> None:
     bwd = device_time(step, name="fwd+bwd", spin=SPIN)
     print("| pass | per call |\n|---|---|", file=out)
     print(f"| forward (K1) | {fwd.seconds * 1e6:.2f} us, share "
-          f"{_share(fwd.bytes_moved, fwd.seconds):.3f} |", file=out)
+          f"{checked_share(fwd.bytes_moved, fwd.seconds, fwd.name):.3f} |", file=out)
     print(f"| fwd+bwd (dx and both value gradients: K1 x 2, K10 x 2) | "
           f"{bwd.seconds * 1e6:.2f} us ({bwd.seconds / fwd.seconds:.1f}x "
           f"fwd) |\n", file=out)
@@ -520,7 +512,7 @@ def _solver(out, dev) -> None:
           f"{7 * n * 4 / 1e6:.2f} MB of vector passes) |", file=out)
     print(f"| CG iteration (event time, slope of {k1} and {k2} iterations)"
           f" | {per_iter * 1e6:.2f} us, {iter_bytes / per_iter / 1e9:.0f} "
-          f"GB/s, {_share(iter_bytes, per_iter):.3f} of the bytes bound |\n",
+          f"GB/s, {checked_share(iter_bytes, per_iter, "CG iteration"):.3f} of the bytes bound |\n",
           file=out)
 
 

@@ -69,3 +69,15 @@ def roofline_fraction(bytes_moved: int, seconds: float,
     if hbm_gbps is None:
         hbm_gbps = detect_hbm_gbps()
     return bytes_moved / (hbm_gbps * 1e9) / seconds
+
+
+def checked_share(bytes_moved: int, seconds: float, what: str,
+                  hbm_gbps: float | None = None) -> float:
+    """``roofline_fraction``, raising above ``ARTIFACT_SHARE``: such a time
+    is an artifact of the measurement, never a result."""
+    share = roofline_fraction(bytes_moved, seconds, hbm_gbps)
+    if share > ARTIFACT_SHARE:
+        raise AssertionError(f"{what}: share {share:.3f} of the bytes bound "
+                             f"is above {ARTIFACT_SHARE}: an artifact, not "
+                             f"a result")
+    return share

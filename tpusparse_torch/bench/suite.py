@@ -18,7 +18,7 @@ from typing import Any
 
 import torch
 
-from tpusparse_torch.bench.roofline import (ARTIFACT_SHARE, card_info,
+from tpusparse_torch.bench.roofline import (card_info, checked_share,
                                             detect_hbm_gbps, format_bytes,
                                             roofline_fraction)
 from tpusparse_torch.bench.runner import BenchResult, device_time
@@ -147,13 +147,10 @@ def headline() -> dict[str, Any]:
     hbm = detect_hbm_gbps()
 
     def row(r: BenchResult) -> dict[str, Any]:
-        share = roofline_fraction(r.bytes_moved, r.seconds, hbm)
-        d = {"us": round(r.seconds * 1e6, 1),
-             "gbps": round(r.gbps, 1) if r.gbps else None,
-             "roofline_frac": round(share, 3)}
-        if share > ARTIFACT_SHARE:      # above the physical limit
-            d.update(roofline_frac=None, artifact=True)
-        return d
+        share = checked_share(r.bytes_moved, r.seconds, r.name, hbm)
+        return {"us": round(r.seconds * 1e6, 1),
+                "gbps": round(r.gbps, 1) if r.gbps else None,
+                "roofline_frac": round(share, 3)}
 
     return {
         "metric": f"spmv_nnz_per_s[{best.name}] M=N=4096 d=0.5 fp32",

@@ -196,3 +196,14 @@ def test_verify_docs_finds_missing_files_and_artifacts(tmp_path):
     problems = pr.verify_docs(str(tmp_path), records=(str(rec),))
     assert len(problems) == 2
     assert "no_such.py" in problems[0] and "1.2" in problems[1]
+
+
+def test_verify_docs_leaves_documents_to_their_checkout(tmp_path):
+    # a checkout of the code alone: the README's port section cites
+    # PERF.md, which that checkout does not carry
+    (tmp_path / "README.md").write_text(
+        "# tpusparse_torch\n\nsee `PERF.md` and `chip_smoke.py`\n")
+    assert pr.verify_docs(str(tmp_path)) == [
+        "README.md cites chip_smoke.py, which does not exist"]
+    (tmp_path / "chip_smoke.py").write_text("")
+    assert pr.verify_docs(str(tmp_path)) == []

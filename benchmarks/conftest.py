@@ -1,0 +1,4 @@
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one (run these "
+        "on the card with python -m pytest benchmarks -m gpu)")

@@ -384,6 +384,21 @@ def test_one_kernel_per_call(cuda):
         assert len(kernels) == 3 * per_call, (name, [e.name for e in kernels])
 
 
+def test_traced_product_table_lists_only_kernels(cuda):
+    """``bench.profile.kernel_times`` on one SELL product, which runs in the
+    program's ``tps.spmv`` and ``tps.launch`` spans: its table lists K1 and
+    its reduce pass, and none of the spans' device-side annotations."""
+    from tpusparse_torch.bench.profile import kernel_times
+
+    a, x, _ = _workload("full", 1)
+    f = SellMatrix.from_dense(a, device=cuda)
+    xt = torch.from_numpy(x[0]).to(cuda)
+    times = kernel_times(lambda fmt, v: fmt.spmv(v), f, xt)
+    assert len(times) == 2, times
+    assert all("kernel" in k and not k.startswith("tps.") for k in times), \
+        times
+
+
 def test_sell_mxu_all_zero_matrix(cuda):
     """Every slot a pad (index 0, value 0): the stored tile stays zero."""
     a = np.zeros((384, 256), np.float32)

@@ -3,6 +3,10 @@ native path against its numpy path and against the JAX package's native
 library, bit for bit, on the cases of ``tests/test_native.py``; and
 ``use_native=True`` raising when the library is unavailable."""
 
+import fcntl
+import time
+from pathlib import Path
+
 import numpy as np
 import pytest
 from scipy import sparse as ssp
@@ -22,11 +26,30 @@ from tpusparse_torch.formats.rsell import rsell_pack_csr
 from tpusparse_torch.formats.sell import sell_pack, sell_pack_csr
 
 
+def _jax_build_in_flight() -> bool:
+    """True while some process compiles the JAX package's converters: its
+    build writes one temporary path that every process shares."""
+    return any(Path(jnative._DIR).glob("_converters_*.so.tmp"))
+
+
 @pytest.fixture(scope="module")
-def built():
-    if not native.available():
-        pytest.fail(f"native build failed: {native.build_error()}")
-    assert jnative.available()
+def built(tmp_path_factory):
+    """Both converter libraries, built one process at a time. Under a lock
+    that every xdist worker shares, wait out a JAX build in flight; a worker
+    that lost that build's race earlier cached "unavailable" while the
+    library reached the disk, so that cache is dropped before asking
+    again."""
+    lock = tmp_path_factory.getbasetemp().parent / "native-build.lock"
+    with open(lock, "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        deadline = time.monotonic() + 300
+        while _jax_build_in_flight() and time.monotonic() < deadline:
+            time.sleep(0.2)
+        if jnative._LIB is False:
+            jnative._LIB = None
+        if not native.available():
+            pytest.fail(f"native build failed: {native.build_error()}")
+        assert jnative.available()
 
 
 @pytest.fixture(scope="module")

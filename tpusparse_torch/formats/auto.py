@@ -25,6 +25,7 @@ than substituting another format.
 
 from __future__ import annotations
 
+import time
 from typing import Any
 
 import numpy as np
@@ -225,7 +226,9 @@ def auto_format(a, *, expect_structured_x: bool = False,
     format its statistics call for, on ``device`` (None: the GPU).
     ``expect_batch``: the anticipated SpMM batch. ``stats``: precomputed
     ``matrix_stats``/``matrix_stats_csr``. Raises ``NotImplementedError``
-    for a format the port does not have yet."""
+    for a format the port does not have yet. ``auto_format.stats_s`` adds
+    up the host seconds from A's copy to the host through its statistics,
+    over every call."""
     from tpusparse_torch.formats.awsp import AwspMatrix
     from tpusparse_torch.formats.binned import BinnedSellMatrix
     from tpusparse_torch.formats.dia import DiaMatrix
@@ -235,10 +238,12 @@ def auto_format(a, *, expect_structured_x: bool = False,
     from tpusparse_torch.kernels.asp_spmv import AspMatrix
 
     resolve_device(device)               # fail before packing, not after
+    t = time.perf_counter()
     is_csr = isinstance(a, CsrMatrix)
     if not is_csr:
         a = _host_numpy(a)
     s = stats or (matrix_stats_csr(a) if is_csr else matrix_stats(a))
+    auto_format.stats_s += time.perf_counter() - t
     m, n = a.shape
     kind = route(m, n, s, expect_structured_x=expect_structured_x,
                  expect_batch=expect_batch)
@@ -255,3 +260,6 @@ def auto_format(a, *, expect_structured_x: bool = False,
            "binned": BinnedSellMatrix}[kind]
     return cls.from_csr(a, device=device) if is_csr \
         else cls.from_dense(a, device=device)
+
+
+auto_format.stats_s = 0.0

@@ -30,6 +30,7 @@ import torch
 from tpusparse_torch.formats.csr import CsrMatrix
 from tpusparse_torch.formats.sell import (SellMatrix, _lane, as_input,
                                           sell_pack, sell_pack_csr)
+from tpusparse_torch.trace import spanned
 from tpusparse_torch.utils import resolve_device, round_up
 
 _LANES = 128
@@ -84,12 +85,14 @@ class PlanSkip:
             k = self._count(int(plan_t.numel()))
         return self._product(xt, plan_t, k)
 
+    @spanned("tps.spmv")
     def spmv(self, x, plan: Any = None) -> torch.Tensor:
         """x: (m,) -> (n,). ``plan``: see the module docstring."""
         if isinstance(x, torch.Tensor):
             return self._run(x[None, :], plan=plan)[0]
         return self._run(np.asarray(x)[None, :], plan=plan)[0]
 
+    @spanned("tps.spmm")
     def spmm(self, x, plan: Any = None) -> torch.Tensor:
         """x: (b, m) -> (b, n). ``plan``: see the module docstring."""
         return self._run(x, plan=plan)

@@ -29,6 +29,7 @@ import torch
 
 from tpusparse_torch.formats.csr import CsrMatrix, _host_numpy, segment_ranks
 from tpusparse_torch.formats.sell import _sorted_rows, as_input
+from tpusparse_torch.trace import spanned
 from tpusparse_torch.utils import resolve_device, round_up
 
 _LANES = 128
@@ -216,10 +217,12 @@ class BellMatrix:
         return bell_spmm(self.bitmap, self.vals, x2d.contiguous(),
                          block_m=self.block_m, n=self.shape[1])
 
+    @spanned("tps.spmv")
     def spmv(self, x) -> torch.Tensor:
         """x: (m,) -> y = x @ A, (n,)."""
         return self._run(as_input(x, self.device)[None, :])[0]
 
+    @spanned("tps.spmm")
     def spmm(self, x) -> torch.Tensor:
         """x: (b, m) -> Y = X @ A, (b, n)."""
         return self._run(as_input(x, self.device))

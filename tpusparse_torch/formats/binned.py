@@ -26,6 +26,7 @@ from tpusparse_torch.formats.sell import (_sell_pack_np, as_input,
                                           sell_pack_csr)
 from tpusparse_torch.kernels.permute import (permute_columns, permute_plan,
                                              source_lanes)
+from tpusparse_torch.trace import spanned
 from tpusparse_torch.utils import resolve_device, round_up
 
 _LANES = 128
@@ -198,10 +199,12 @@ class BinnedSellMatrix:
         parts = [sell_spmm(b["idx"], b["vals"], x2d) for b in self.buckets]
         return permute_columns(parts, self.perm_src)
 
+    @spanned("tps.spmv")
     def spmv(self, x) -> torch.Tensor:
         """x: (m,) -> y = x @ A, (n,)."""
         return self._run(as_input(x, self.device)[None, :])[0]
 
+    @spanned("tps.spmm")
     def spmm(self, x) -> torch.Tensor:
         """x: (b, m) -> Y = X @ A, (b, n)."""
         return self._run(as_input(x, self.device))

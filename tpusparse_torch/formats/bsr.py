@@ -19,6 +19,7 @@ import torch
 from tpusparse_torch.formats.csr import CsrMatrix, _host_numpy
 from tpusparse_torch.formats.sell import as_input
 from tpusparse_torch.kernels.bsr_spmv import bsr_plans, bsr_spmm
+from tpusparse_torch.trace import spanned
 from tpusparse_torch.utils import resolve_device, round_up
 
 _LANES = 128
@@ -224,10 +225,12 @@ class BsrMatrix:
         return bsr_spmm(self.bi, self.bj, self.blocks, x2d.contiguous(),
                         n_padded=np_, n=self.shape[1], plan=self._work)
 
+    @spanned("tps.spmv")
     def spmv(self, x) -> torch.Tensor:
         """x: (m,) -> y = x @ A, (n,)."""
         return self._run(as_input(x, self.device)[None, :])[0]
 
+    @spanned("tps.spmm")
     def spmm(self, x) -> torch.Tensor:
         """x: (b, m) -> Y = X @ A, (b, n)."""
         return self._run(as_input(x, self.device))

@@ -31,6 +31,7 @@ from tpusparse_torch.formats.csr import CsrMatrix
 from tpusparse_torch.formats.sell import as_input
 from tpusparse_torch.kernels.dia_spmv import (DiaPlan, dia_plan, dia_spmv,
                                               fits)
+from tpusparse_torch.trace import spanned
 from tpusparse_torch.utils import resolve_device
 
 
@@ -194,19 +195,21 @@ class DiaMatrix:
                 y = y + vp[None, :] * xp[:, lo - d:lo - d + n]
         return y
 
+    @spanned("tps.spmv")
     def spmv(self, x) -> torch.Tensor:
         """x: (m,) -> y = x @ A, (n,). K8 for a square operator that
-        ``fits`` the kernel, the shifted form otherwise; a 2-D x goes to
-        ``spmm``."""
+        ``fits`` the kernel, the shifted form otherwise; a 2-D x takes the
+        shifted form, as in ``spmm``."""
         x = as_input(x, self.device)
         if x.ndim != 1:
-            return self.spmm(x)
+            return self._shifted(x)
         m, n = self.shape
         if m == n and not self.xla_only and fits(self.offsets, self.sym, n):
             return dia_spmv(self.offsets, self.vals, x.contiguous(),
                             sym=self.sym, n=n, plan=self.plan)
         return self._shifted(x[None, :])[0]
 
+    @spanned("tps.spmm")
     def spmm(self, x) -> torch.Tensor:
         """x: (b, m) -> Y = X @ A, (b, n), through the shifted form."""
         return self._shifted(as_input(x, self.device))

@@ -18,6 +18,7 @@ import torch
 
 from tpusparse_torch.formats.csr import _host_numpy
 from tpusparse_torch.formats.sell import as_input
+from tpusparse_torch.trace import spanned
 from tpusparse_torch.utils import resolve_device, round_up
 
 
@@ -78,11 +79,13 @@ class EllMatrix:
         at.scatter_add_(1, self.idx.cpu().long(), self.val.cpu())
         return at.T.contiguous()
 
+    @spanned("tps.spmv")
     def spmv(self, x) -> torch.Tensor:
         """x: (m,) -> y = x @ A, (n,)."""
         x = as_input(x, self.device)
         return (self.val * x[self.idx.long()]).sum(dim=1)
 
+    @spanned("tps.spmm")
     def spmm(self, x) -> torch.Tensor:
         """x: (b, m) -> Y = X @ A, (b, n)."""
         x = as_input(x, self.device)

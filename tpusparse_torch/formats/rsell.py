@@ -32,6 +32,7 @@ from tpusparse_torch.formats.sell import _sorted_rows, as_input
 from tpusparse_torch.kernels.permute import permute_plan, source_lanes
 from tpusparse_torch.kernels.rsell_spmv import (check_plan_ids, rsell_plans,
                                                 rsell_spmm, unpermute_lanes)
+from tpusparse_torch.trace import spanned
 from tpusparse_torch.utils import resolve_device, round_up
 
 _LANES = 128
@@ -302,10 +303,12 @@ class RsellMatrix:
                           x2d.contiguous(), n_padded=np_, n=n,
                           plan=self._work, unpermute=self.unpermute)
 
+    @spanned("tps.spmv")
     def spmv(self, x) -> torch.Tensor:
         """x: (m,) -> y = x @ A, (n,)."""
         return self._run(as_input(x, self.device)[None, :])[0]
 
+    @spanned("tps.spmm")
     def spmm(self, x) -> torch.Tensor:
         """x: (b, m) -> Y = X @ A, (b, n)."""
         return self._run(as_input(x, self.device))

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from tpusparse_torch.formats.csr import CsrMatrix, _host_numpy, segment_ranks
+from tpusparse_torch.trace import recording, span, spanned
 from tpusparse_torch.utils import resolve_device, round_up
 
 _LANES = 128
@@ -284,8 +285,13 @@ class SellMatrix:
 
     def spmv(self, x) -> torch.Tensor:
         """x: (m,) -> y = x @ A, (n,)."""
+        # the span's gate inline: a B = 1 product is host-bound
+        if recording():
+            with span("tps.spmv"):
+                return self._run(as_input(x, self.device)[None, :])[0]
         return self._run(as_input(x, self.device)[None, :])[0]
 
+    @spanned("tps.spmm")
     def spmm(self, x) -> torch.Tensor:
         """x: (b, m) -> Y = X @ A, (b, n)."""
         return self._run(as_input(x, self.device))

@@ -27,6 +27,7 @@ from tpusparse_torch.formats.csr import CsrMatrix, segment_ranks
 from tpusparse_torch.formats.sell import _sorted_rows, as_input
 from tpusparse_torch.kernels.bsell_spmv import bsell_plans, bsell_spmm
 from tpusparse_torch.kernels.bsr_spmv import bsr_spmm
+from tpusparse_torch.trace import spanned
 from tpusparse_torch.utils import resolve_device, round_up
 
 _LANES = 128
@@ -299,10 +300,12 @@ class TcsrMatrix:
                             device=x2d.device)
         return y
 
+    @spanned("tps.spmv")
     def spmv(self, x) -> torch.Tensor:
         """x: (m,) -> y = x @ A, (n,)."""
         return self._run(as_input(x, self.device)[None, :])[0]
 
+    @spanned("tps.spmm")
     def spmm(self, x) -> torch.Tensor:
         """x: (b, m) -> Y = X @ A, (b, n)."""
         return self._run(as_input(x, self.device))

@@ -34,6 +34,7 @@ from tpusparse_torch.formats.awsp import PlanSkip
 from tpusparse_torch.formats.csr import _host_numpy
 from tpusparse_torch.kernels import _build
 from tpusparse_torch.kernels.dense import batch_tile, dense_plain
+from tpusparse_torch.trace import spanned
 from tpusparse_torch.utils import cdiv, resolve_device, round_up
 
 _LANES = 128
@@ -76,6 +77,7 @@ def asp_spmm_plain(plan: torch.Tensor, k: torch.Tensor, a_pad: torch.Tensor,
     return dense_plain(a_pad[rows][:, :n], xs)
 
 
+@spanned("tps.launch")
 def asp_spmm(plan: torch.Tensor, k: torch.Tensor, a_pad: torch.Tensor,
              x: torch.Tensor, *, n: int) -> torch.Tensor:
     """K9: plan (P,) int32 window ids, k (1,) int32 live count, a_pad

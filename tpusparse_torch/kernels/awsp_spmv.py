@@ -34,6 +34,7 @@ import torch
 
 from tpusparse_torch.kernels import _build
 from tpusparse_torch.kernels.dense import batch_tile
+from tpusparse_torch.trace import spanned
 from tpusparse_torch.utils import cdiv
 
 _LANES = 128
@@ -98,6 +99,7 @@ def device_group_plan_plain(x: torch.Tensor, ng: int,
     return plan, count.clamp(min=1).reshape(1)
 
 
+@spanned("tps.launch")
 def device_group_plan(x: torch.Tensor, ng: int,
                       span: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The device plan ``(plan, k)`` of ``device_group_plan_plain``, bit for
@@ -143,6 +145,7 @@ def awsp_spmm_plain(plan: torch.Tensor, k: torch.Tensor, idx: torch.Tensor,
     return y[:, :n].contiguous()
 
 
+@spanned("tps.launch")
 def awsp_spmm(plan: torch.Tensor, k: torch.Tensor, idx: torch.Tensor,
               vals: torch.Tensor, x: torch.Tensor, *, g: int,
               n: int | None = None) -> torch.Tensor:

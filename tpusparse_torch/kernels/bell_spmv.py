@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from tpusparse_torch.kernels import _build
+from tpusparse_torch.trace import spanned
 from tpusparse_torch.utils import cdiv
 
 _LANES = 128
@@ -140,6 +141,7 @@ def bell_spmm_plain(bitmap: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     return y[:, :n].contiguous()
 
 
+@spanned("tps.launch")
 def bell_spmm(bitmap: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, *,
               block_m: int, n: int | None = None) -> torch.Tensor:
     """K12: bitmap (nb, mb, 128, BM/32) int32, vals (nb, mb, 128, W) fp32,

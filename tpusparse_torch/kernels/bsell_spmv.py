@@ -24,6 +24,7 @@ import torch
 
 from tpusparse_torch.kernels import _build, block_items
 from tpusparse_torch.kernels.dense import batch_tile
+from tpusparse_torch.trace import spanned
 
 _LANES = 128
 # csrc/bsell_spmv.cu kMaxWin: the x windows a block stages for its item
@@ -66,6 +67,7 @@ def bsell_spmm_plain(bi: torch.Tensor, bj: torch.Tensor, idx: torch.Tensor,
     return y.reshape(batch, n_padded)[:, :n].float().contiguous()
 
 
+@spanned("tps.launch")
 def bsell_spmm(bi: torch.Tensor, bj: torch.Tensor, idx: torch.Tensor,
                vals: torch.Tensor, x: torch.Tensor, *, n_padded: int,
                n: int | None = None,

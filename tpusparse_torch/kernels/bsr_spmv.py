@@ -27,6 +27,7 @@ import torch
 
 from tpusparse_torch.kernels import _build, block_items
 from tpusparse_torch.kernels.dense import batch_tile
+from tpusparse_torch.trace import spanned
 
 _LANES = 128
 _SUB = 8
@@ -75,6 +76,7 @@ def bsr_spmm_plain(bi: torch.Tensor, bj: torch.Tensor, blocks: torch.Tensor,
     return y.reshape(batch, n_padded)[:, :n].float().contiguous()
 
 
+@spanned("tps.launch")
 def bsr_spmm(bi: torch.Tensor, bj: torch.Tensor, blocks: torch.Tensor,
              x: torch.Tensor, *, n_padded: int, n: int | None = None,
              plan: dict[int, block_items.ItemPlan] | None = None

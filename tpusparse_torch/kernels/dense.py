@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from tpusparse_torch.kernels import _build
+from tpusparse_torch.trace import spanned
 from tpusparse_torch.utils import cdiv
 
 # K2's launch shape (csrc/dense.cu): slices are whole 16-row stages. Blocks
@@ -59,6 +60,7 @@ def dense_plain(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y[0] if squeeze else y
 
 
+@spanned("tps.launch")
 def dense_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """K2: a (m, n) fp32, x (m,) or (b, m) fp32 -> (n,) or (b, n)."""
     if x.device.type == "cpu":

@@ -43,6 +43,7 @@ from typing import NamedTuple
 import torch
 
 from tpusparse_torch.kernels import _build
+from tpusparse_torch.trace import spanned
 from tpusparse_torch.utils import round_up
 
 _LANES = 128
@@ -263,6 +264,7 @@ def dia_spmv_plain(offsets, vals: torch.Tensor, x: torch.Tensor, *,
     return acc
 
 
+@spanned("tps.launch")
 def dia_spmv(offsets, vals: torch.Tensor, x: torch.Tensor, *, sym: bool,
              n: int, plan: DiaPlan | None = None,
              xstrip_l: torch.Tensor | None = None,

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from tpusparse_torch.kernels import _build
+from tpusparse_torch.trace import spanned
 from tpusparse_torch.utils import round_up
 
 _LANES = 128
@@ -91,6 +92,7 @@ def permute_columns_plain(y, src: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@spanned("tps.launch")
 def permute_columns(y, src: torch.Tensor) -> torch.Tensor:
     """K5: y (B, ldy) fp32, or a list of up to ``MAX_PARTS`` (B, ld_k) fp32
     parts read as their concatenation along the columns (never joined in

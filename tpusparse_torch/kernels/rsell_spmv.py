@@ -51,6 +51,7 @@ import torch
 from tpusparse_torch.kernels import _build, block_items
 from tpusparse_torch.kernels.dense import batch_tile
 from tpusparse_torch.kernels.permute import permute_columns_plain
+from tpusparse_torch.trace import spanned
 from tpusparse_torch.utils import round_up
 
 _LANES = 128
@@ -252,6 +253,7 @@ def unpermute_lanes(src: np.ndarray, n_padded: int,
                      bool(live.all()))
 
 
+@spanned("tps.launch")
 def rsell_spmm(cj: torch.Tensor, ct: torch.Tensor, idx: torch.Tensor,
                vals: torch.Tensor, x: torch.Tensor, *, n_padded: int,
                n: int | None = None,

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from tpusparse_torch.kernels import _build
+from tpusparse_torch.trace import spanned
 
 _LANES = 128
 
@@ -44,6 +45,7 @@ def sell_dvals_plain(idx_signed: torch.Tensor, x: torch.Tensor,
     return torch.where(idx_signed >= 0, acc, 0.0)
 
 
+@spanned("tps.launch")
 def sell_dvals(idx_signed: torch.Tensor, x: torch.Tensor,
                g: torch.Tensor) -> torch.Tensor:
     """K10: idx_signed (nb, nt, W, 128) int8 with -1 on pads, x (B, m) and

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from tpusparse_torch.kernels import _build
+from tpusparse_torch.trace import spanned
 from tpusparse_torch.utils import cdiv
 
 _LANES = 128
@@ -70,6 +71,7 @@ def sell_mxu_spmm_plain(idx: torch.Tensor, vals: torch.Tensor,
     return y[:, :n].contiguous()
 
 
+@spanned("tps.launch")
 def sell_mxu_spmm(idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, *,
                   n: int | None = None) -> torch.Tensor:
     """K11: idx (nb, nt, W, 128) int8, vals the same shape fp32, x (B, m)

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from tpusparse_torch.kernels import _build
+from tpusparse_torch.trace import recording, span
 from tpusparse_torch.utils import cdiv
 
 _LANES = 128
@@ -124,6 +125,14 @@ def sell_spmm(idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     """K1: idx (nb, nt, W, 128) int8, vals same shape (fp32/bf16/int8),
     x (B, m) fp32 with m <= nt*128 (the kernel reads missing columns as 0),
     scales (nb, 128) fp32 for int8 -> (B, n) fp32."""
+    # the span's gate inline: a B = 1 product is host-bound
+    if recording():
+        with span("tps.launch"):
+            return _sell_spmm(idx, vals, x, scales, n)
+    return _sell_spmm(idx, vals, x, scales, n)
+
+
+def _sell_spmm(idx, vals, x, scales, n):
     if x.device.type == "cpu":
         return sell_spmm_plain(idx, vals, x, scales=scales, n=n)
     nb, nt, w, lanes = vals.shape

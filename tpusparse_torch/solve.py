@@ -5,7 +5,8 @@ Counterpart of ``tpusparse/solve.py``, with the same recurrences, stopping
 rules and return shapes. The JAX loops are ``lax.while_loop`` /
 ``fori_loop`` programs; here they are Python loops that test the same
 stopping rule before every iteration, so the iteration counts agree. That
-test reads one scalar back from the device each iteration (a host sync);
+test reads one scalar back from the device each iteration (a host sync,
+``stop_test``);
 a solve is therefore ``iters`` x (the operator's time + the vector ops +
 one sync), and the sync stays until the loop moves onto the device.
 
@@ -26,6 +27,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+
+from tpusparse_torch.trace import span
 
 Apply = Callable[[torch.Tensor], torch.Tensor]
 _TINY = 1e-30
@@ -52,6 +55,14 @@ def _vdot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def _identity(v: torch.Tensor) -> torch.Tensor:
     return v
+
+
+def stop_test(flag: torch.Tensor) -> bool:
+    """The host's read of a stopping test's flag, computed on the device:
+    the host waits there until the device has caught up (a host sync), in
+    the ``tps.stop`` span."""
+    with span("tps.stop"):
+        return bool(flag)
 
 
 def _limit(b: torch.Tensor, tol: float, atol: float,
@@ -81,7 +92,7 @@ def cg(a: Any, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
     rz = _vdot(r, z)
     limit2 = _limit(b, tol, atol) ** 2
     k = 0
-    while k < maxiter and bool(_vdot(r, r) > limit2):
+    while k < maxiter and stop_test(_vdot(r, r) > limit2):
         ap = apply(p)
         alpha = rz / _vdot(p, ap)
         x = x + alpha * p
@@ -136,7 +147,7 @@ def bicgstab(a: Any, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
     v = p = torch.zeros_like(b)
     limit2 = _limit(b, tol, atol) ** 2
     k = 0
-    while k < maxiter and bool(_vdot(r, r) > limit2):
+    while k < maxiter and stop_test(_vdot(r, r) > limit2):
         rho_new = _vdot(rhat, r)
         rr = _vdot(r, r)
         restart = torch.abs(rho_new) <= 1e-8 * torch.sqrt(
@@ -281,7 +292,7 @@ def gmres(a: Any, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
     r0 = b - apply(x)
     res = torch.sqrt(_vdot(r0, r0))
     k = 0
-    while k < max_outer and bool(res > limit):
+    while k < max_outer and stop_test(res > limit):
         x = cycle(x)
         r = b - apply(x)
         res = torch.sqrt(_vdot(r, r))
@@ -331,7 +342,7 @@ def cg_multi(a: Any, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
     rz = _rowdot(r, z)
     limit2 = _limit(b, tol, atol, _rowdot) ** 2
     k = 0
-    while k < maxiter and bool(torch.any(_rowdot(r, r) > limit2)):
+    while k < maxiter and stop_test(torch.any(_rowdot(r, r) > limit2)):
         active = _rowdot(r, r) > limit2
         ap = apply(p)
         pap = _rowdot(p, ap)

@@ -187,6 +187,121 @@ def test_sell_kernel_storage_lanes_whole_batch(cuda, lane, batch):
     _close(y, reference.sgemm_cpu(x, f.to_dense().float().numpy()), 1e-3)
 
 
+def _k1_unplanned(f, xt):
+    """K1 through its 19-argument C entry, as every call made it before
+    launch plans: its own partial sums, the current stream's handle."""
+    from tpusparse_torch.kernels import _build
+    from tpusparse_torch.kernels.sell_spmv import _VALS_KIND, sell_shape
+
+    nb, nt, w, _ = f.vals.shape
+    batch, dev = xt.shape[0], xt.device
+    shape = sell_shape(nb, nt, w, batch, f.vals.element_size(),
+                       _build.sm_count(dev), _build.smem_limit(dev))
+    part = torch.empty((shape.slices, batch, nb * 128), dtype=torch.float32,
+                       device=dev)
+    y = torch.empty((batch, f.shape[1]), dtype=torch.float32, device=dev)
+    _build.check(_build.lib().tps_sell_spmm(
+        f.idx.data_ptr(), f.vals.data_ptr(), _VALS_KIND[f.vals.dtype],
+        xt.data_ptr(), None if f.scales is None else f.scales.data_ptr(),
+        part.data_ptr(), y.data_ptr(), nb, nt, w, batch, xt.shape[1],
+        shape.slices, shape.per_slice, f.shape[1], shape.bb, shape.stages,
+        dev.index, _build.stream_of(xt)), "tps_sell_spmm")
+    return y
+
+
+@pytest.mark.parametrize("batch", [1, 2, 8, 16, 32])
+@pytest.mark.parametrize("lane", ["float32", "bfloat16", "int8"])
+def test_sell_plan_matches_the_checked_call(cuda, lane, batch):
+    """A ``SellMatrix`` product through its reused plan gives the bits of
+    the checked ``sell_spmm`` and of the C entry called as before plans;
+    ``spmv`` gives a vector of those bits."""
+    from tpusparse_torch.kernels.sell_spmv import sell_plan
+
+    a = generators.random_sparse_matrix(4096, 4096, density=0.5, seed=batch)
+    f = SellMatrix.from_dense(a, dtype=None if lane == "float32" else
+                              torch.bfloat16 if lane == "bfloat16" else
+                              "int8", device=cuda)
+    x = generators.random_sparse_batch(batch, 4096, 0.5, seed=batch)
+    xt = torch.from_numpy(x).to(cuda)
+    f.spmm(xt)                                      # builds the plan
+    hits = sell_plan.hits
+    y = f.spmm(xt)
+    assert sell_plan.hits == hits + 1
+    checked = sell_spmm(f.idx, f.vals, xt, scales=f.scales, n=f.shape[1])
+    torch.cuda.synchronize()
+    assert torch.equal(y, checked)
+    assert torch.equal(y, _k1_unplanned(f, xt))
+    if batch == 1:
+        v = f.spmv(xt[0])
+        v2 = f.spmv(xt[0])
+        torch.cuda.synchronize()
+        assert v.shape == (f.shape[1],) and torch.equal(v, y[0])
+        assert torch.equal(v2, y[0])
+    _close(y, sell_spmm_plain(f.idx, f.vals, xt, scales=f.scales,
+                              n=f.shape[1]), 1e-4)
+
+
+def _stack(cuda):
+    """Four packs of three shapes and 16 products over them, each with its
+    own x."""
+    shapes = [(4096, 4096), (1024, 2048), (4096, 4096), (300, 260)]
+    packs = [SellMatrix.from_dense(generators.random_sparse_matrix(
+        m, n, density=0.5, seed=k), device=cuda)
+        for k, (m, n) in enumerate(shapes)]
+    work = []
+    for k in range(16):
+        f = packs[k % 4]
+        x = torch.from_numpy(generators.random_sparse_vector(
+            f.shape[0], 0.5, seed=100 + k)).to(cuda)
+        work.append((f, x))
+    return work
+
+
+def test_sell_plans_back_to_back_on_one_stream(cuda):
+    """16 products on one stream, dispatched with no sync between them,
+    each with partial sums the caching allocator hands on in stream order,
+    each gives the bits of its own product run alone."""
+    work = _stack(cuda)
+    alone = []
+    for f, x in work:
+        alone.append(f.spmv(x))
+        torch.cuda.synchronize()
+    for rep in range(3):
+        ys = [f.spmv(x) for f, x in work]
+        torch.cuda.synchronize()
+        for k, (y, want) in enumerate(zip(ys, alone)):
+            assert torch.equal(y, want), (rep, k)
+    assert all(len(f._plans) == 1 for f, _ in work)
+
+
+def test_sell_plans_on_two_streams(cuda):
+    """The same packs on two streams: a plan each, and products in flight
+    on both at once give the bits of each alone."""
+    from tpusparse_torch.kernels import _build
+
+    work = _stack(cuda)
+    alone = [f.spmv(x) for f, x in work]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = []
+    for rep in range(3):
+        for k, (f, x) in enumerate(work):
+            with torch.cuda.stream(streams[(k + rep) % 2]):
+                got.append((k, f.spmv(x)))
+    torch.cuda.synchronize()
+    for k, y in got:
+        assert torch.equal(y, alone[k]), k
+    f, x = work[0]
+    keys = {key[3] for key in f._plans}
+    assert {s.cuda_stream for s in streams} <= keys
+    assert _build.raw_stream(x.device.index) == \
+        torch.cuda.current_stream().cuda_stream
+    with torch.cuda.stream(streams[1]):
+        assert _build.raw_stream(x.device.index) == streams[1].cuda_stream
+
+
 @pytest.mark.parametrize("batch", [1, 3, 8, 9, 32])
 @pytest.mark.parametrize("block_m", [32, 128, 256, 512, 1024])
 def test_bell_kernel_live_values(cuda, block_m, batch):

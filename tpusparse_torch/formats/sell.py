@@ -27,11 +27,14 @@ import numpy as np
 import torch
 
 from tpusparse_torch.formats.csr import CsrMatrix, _host_numpy, segment_ranks
+from tpusparse_torch.kernels._build import raw_stream
+from tpusparse_torch.kernels.sell_spmv import sell_plan, sell_spmm
 from tpusparse_torch.trace import recording, span, spanned
 from tpusparse_torch.utils import resolve_device, round_up
 
 _LANES = 128
 _SUB = 8
+_F32 = torch.float32
 
 
 def _lane(dtype: Any) -> str | None:
@@ -204,7 +207,14 @@ def as_input(x, device: torch.device) -> torch.Tensor:
 
 
 class SellMatrix:
-    """SELL-packed A held as tensors on one device."""
+    """SELL-packed A held as tensors on one device.
+
+    Its products keep K1's launch plans (``kernels/sell_spmv.py``
+    ``SellPlan``) in ``_plans``, one per (batch rows, x's width, device
+    index, stream), built on the first product of that key. A plan holds
+    the ``idx``, ``vals`` and ``scales`` it was built from: one of them
+    replaced by another tensor makes the next product of the key build
+    anew (in-place updates keep the plan's pointers valid)."""
 
     def __init__(self, idx: torch.Tensor, vals: torch.Tensor, shape, padded,
                  w: int, nnz: int, scales: torch.Tensor | None = None):
@@ -215,6 +225,7 @@ class SellMatrix:
         self.w = w
         self.nnz = nnz
         self.scales = scales           # (nb, 128) fp32, int8 storage only
+        self._plans: dict[tuple[int, int, int, int], Any] = {}
 
     @property
     def device(self) -> torch.device:
@@ -276,22 +287,60 @@ class SellMatrix:
         a[tt * _LANES + cc, jj * _LANES + rr] = v
         return a[:self.shape[0], :self.shape[1]]
 
-    def _run(self, x2d: torch.Tensor) -> torch.Tensor:
-        from tpusparse_torch.kernels.sell_spmv import sell_spmm
+    def _plan(self, batch: int, ldx: int, index: int):
+        """The plan of key (batch, ldx, device ``index``, current stream)
+        if one was built from the matrix's present tensors, else None."""
+        plan = self._plans.get((batch, ldx, index, raw_stream(index)
+                                if index >= 0 else 0))
+        if plan is None or plan.vals is not self.vals \
+                or plan.idx is not self.idx or plan.scales is not self.scales:
+            return None
+        sell_plan.hits += 1
+        return plan
 
+    def _run(self, x2d: torch.Tensor, vec: bool = False) -> torch.Tensor:
+        """``x2d`` on the matrix's device -> (B, n), or (n,) where ``vec``."""
+        x2d = x2d.contiguous()
+        if x2d.ndim != 2:       # sell_spmm raises (the plain version runs
+            y = sell_spmm(self.idx, self.vals, x2d,          # on the CPU)
+                          scales=self.scales, n=self.shape[1])
+            return y[0] if vec else y
+        batch, ldx = x2d.shape
+        index = x2d.get_device()
+        plan = self._plan(batch, ldx, index)
+        if plan is None:
+            key = (batch, ldx, index, raw_stream(index) if index >= 0 else 0)
+            plan = sell_plan(self.idx, self.vals, x2d, scales=self.scales,
+                             n=self.shape[1], stream=key[3])
+            if key in self._plans:      # its plan held replaced tensors
+                sell_plan.rebuilds += 1
+            self._plans[key] = plan
         # no padding to the packed rows: the kernel reads them as zero
-        return sell_spmm(self.idx, self.vals, x2d.contiguous(),
-                         scales=self.scales, n=self.shape[1])
+        return plan.run(x2d, vec)
 
     def spmv(self, x) -> torch.Tensor:
         """x: (m,) -> y = x @ A, (n,)."""
         # the span's gate inline: a B = 1 product is host-bound
         if recording():
             with span("tps.spmv"):
-                return self._run(as_input(x, self.device)[None, :])[0]
-        return self._run(as_input(x, self.device)[None, :])[0]
+                return self._spmv(x)
+        return self._spmv(x)
+
+    def _spmv(self, x) -> torch.Tensor:
+        # planned as it is: a contiguous fp32 vector on the card
+        if type(x) is torch.Tensor and x.is_cuda and x.dtype is _F32 \
+                and x.ndim == 1 and x.is_contiguous():
+            plan = self._plan(1, x.shape[0], x.get_device())
+            if plan is not None:
+                return plan.run(x, True)
+        return self._run(as_input(x, self.device)[None, :], True)
 
     @spanned("tps.spmm")
     def spmm(self, x) -> torch.Tensor:
         """x: (b, m) -> Y = X @ A, (b, n)."""
+        if type(x) is torch.Tensor and x.is_cuda and x.dtype is _F32 \
+                and x.ndim == 2 and x.is_contiguous():
+            plan = self._plan(x.shape[0], x.shape[1], x.get_device())
+            if plan is not None:
+                return plan.run(x)
         return self._run(as_input(x, self.device))

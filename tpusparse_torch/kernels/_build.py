@@ -151,8 +151,16 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
+# raw_stream(index): the handle of device ``index``'s current stream, the
+# int ``torch.cuda.current_stream(index).cuda_stream`` gives, without
+# building a Python stream object where this torch has the call
+raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current stream of CUDA tensor ``t``'s device."""
+    return raw_stream(t.get_device())
 
 
 @functools.cache

@@ -7,8 +7,15 @@ Storage may be fp32, bf16 or int8; accumulation is fp32. The result is
 ``(B, n)``: the TPU kernel's ``(B*8, N)`` output slab is not part of the
 port.
 
-``sell_spmm`` launches the CUDA kernel for CUDA tensors and uses
-``sell_spmm_plain`` only for CPU tensors; any other device raises.
+Every call goes through a launch plan (``SellPlan``, made by
+``sell_plan``): the checks, the ``SellShape`` and the C entry's arguments
+for one pack, one shape of x and one stream, fixed once as ctypes objects.
+A ``SellMatrix`` keeps its plans, so that a product it has made before on
+the stream costs two allocations (the partial sums and y) and one ctypes
+call whose other arguments were made with the plan; ``sell_spmm`` builds
+a plan for its one call. A plan launches the CUDA
+kernel for CUDA tensors and runs ``sell_spmm_plain`` only for CPU tensors;
+any other device raises.
 
 The CUDA code reads the pack once for every block of batch rows: up to 8
 rows with 128-thread blocks of one or a few windows, from 9 rows with
@@ -18,6 +25,7 @@ bulk-copied tiles in shared memory (``sell_shape``).
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -124,52 +132,116 @@ def sell_spmm(idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
               n: int | None = None) -> torch.Tensor:
     """K1: idx (nb, nt, W, 128) int8, vals same shape (fp32/bf16/int8),
     x (B, m) fp32 with m <= nt*128 (the kernel reads missing columns as 0),
-    scales (nb, 128) fp32 for int8 -> (B, n) fp32."""
-    # the span's gate inline: a B = 1 product is host-bound
-    if recording():
-        with span("tps.launch"):
-            return _sell_spmm(idx, vals, x, scales, n)
-    return _sell_spmm(idx, vals, x, scales, n)
-
-
-def _sell_spmm(idx, vals, x, scales, n):
-    if x.device.type == "cpu":
-        return sell_spmm_plain(idx, vals, x, scales=scales, n=n)
-    nb, nt, w, lanes = vals.shape
-    if idx.shape != vals.shape or idx.dtype != torch.int8 or lanes != _LANES:
-        raise ValueError(f"sell_spmm: idx {tuple(idx.shape)} {idx.dtype} vs "
-                         f"vals {tuple(vals.shape)}")
-    if vals.dtype not in _VALS_KIND:
-        raise ValueError(f"sell_spmm: unsupported vals dtype {vals.dtype}")
-    if (vals.dtype == torch.int8) != (scales is not None):
-        raise ValueError("sell_spmm: int8 storage needs scales, and only it")
-    if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] > nt * _LANES:
-        raise ValueError(f"sell_spmm: x must be fp32 (B, <={nt * _LANES}), got "
-                         f"{x.dtype} {tuple(x.shape)}")
-    extra = () if scales is None else (scales,)
-    if scales is not None and (scales.dtype != torch.float32
-                               or scales.numel() != nb * _LANES):
-        raise ValueError("sell_spmm: scales must be fp32 (nb, 128)")
-    n = nb * _LANES if n is None else n
-    if not 0 <= n <= nb * _LANES:
-        raise ValueError(f"sell_spmm: n = {n} outside 0 .. {nb * _LANES}")
-    dev = _build.require_cuda("sell_spmm", idx, vals, x, *extra,
-                              aligned=(idx, vals))
-    batch = x.shape[0]
-    shape = sell_shape(nb, nt, w, batch, vals.element_size(),
-                       _build.sm_count(dev), _build.smem_limit(dev))
-    part = torch.empty((shape.slices, batch, nb * _LANES),
-                       dtype=torch.float32, device=dev)
-    y = torch.empty((batch, n), dtype=torch.float32, device=dev)
-    rc = _build.lib().tps_sell_spmm(
-        idx.data_ptr(), vals.data_ptr(), _VALS_KIND[vals.dtype], x.data_ptr(),
-        None if scales is None else scales.data_ptr(), part.data_ptr(),
-        y.data_ptr(), nb, nt, w, batch, x.shape[1], shape.slices,
-        shape.per_slice, n, shape.bb, shape.stages, dev.index,
-        _build.stream_of(x))
-    _build.check(rc, "sell_spmm")
-    sell_spmm.launches += 1
-    return y
+    scales (nb, 128) fp32 for int8 -> (B, n) fp32. A plan for this one call
+    (``sell_plan``), run once."""
+    return sell_plan(idx, vals, x, scales=scales, n=n).run(x)
 
 
 sell_spmm.launches = 0
+
+
+class SellPlan:
+    """A K1 launch for one pack (``idx``, ``vals``, ``scales``, held), one
+    shape of x (``batch`` rows of ``ldx``) and one stream: every check of a
+    call done, its ``SellShape`` fixed and ``tps_sell_spmm``'s arguments
+    other than x, the partial sums and y made as ctypes objects. Made by
+    ``sell_plan``. ``run(x)`` then checks nothing of x: the caller gives an
+    x of the plan's shape and dtype, contiguous, on its device, and calls
+    on the plan's stream. Each run allocates its own partial sums, so that
+    runs from several threads never share them. On the CPU a plan holds no
+    launch and runs the plain version, as a call there always did."""
+
+    __slots__ = ("idx", "vals", "scales", "n", "stream", "yshape", "vshape",
+                 "pshape", "_fn", "_head", "_scales", "_tail")
+
+    def __init__(self, idx, vals, x, scales, n, stream):
+        self.idx, self.vals, self.scales = idx, vals, scales
+        self.n, self._fn = n, None
+        if x.device.type == "cpu":
+            return
+        nb, nt, w, lanes = vals.shape
+        if idx.shape != vals.shape or idx.dtype != torch.int8 \
+                or lanes != _LANES:
+            raise ValueError(f"sell_spmm: idx {tuple(idx.shape)} {idx.dtype} "
+                             f"vs vals {tuple(vals.shape)}")
+        if vals.dtype not in _VALS_KIND:
+            raise ValueError(f"sell_spmm: unsupported vals dtype {vals.dtype}")
+        if (vals.dtype == torch.int8) != (scales is not None):
+            raise ValueError("sell_spmm: int8 storage needs scales, and only "
+                             "it")
+        if x.dtype != torch.float32 or x.ndim != 2 \
+                or x.shape[1] > nt * _LANES:
+            raise ValueError(f"sell_spmm: x must be fp32 (B, <={nt * _LANES}),"
+                             f" got {x.dtype} {tuple(x.shape)}")
+        extra = () if scales is None else (scales,)
+        if scales is not None and (scales.dtype != torch.float32
+                                   or scales.numel() != nb * _LANES):
+            raise ValueError("sell_spmm: scales must be fp32 (nb, 128)")
+        n = nb * _LANES if n is None else n
+        if not 0 <= n <= nb * _LANES:
+            raise ValueError(f"sell_spmm: n = {n} outside 0 .. {nb * _LANES}")
+        dev = _build.require_cuda("sell_spmm", idx, vals, x, *extra,
+                                  aligned=(idx, vals))
+        batch, ldx = x.shape
+        shape = sell_shape(nb, nt, w, batch, vals.element_size(),
+                           _build.sm_count(dev), _build.smem_limit(dev))
+        self.stream = _build.raw_stream(dev.index) if stream is None \
+            else stream
+        self.n, self.yshape, self.vshape = n, (batch, n), (n,)
+        self.pshape = (shape.slices, batch, nb * _LANES)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        # tps_sell_spmm(idx, vals, vals_kind, x, scales, part, y, *tail)
+        self._head = (p(idx.data_ptr()), p(vals.data_ptr()),
+                      i(_VALS_KIND[vals.dtype]))
+        self._scales = p(None if scales is None else scales.data_ptr())
+        self._tail = tuple(i(v) for v in (
+            nb, nt, w, batch, ldx, shape.slices, shape.per_slice, n,
+            shape.bb, shape.stages, dev.index)) + (p(self.stream),)
+        self._fn = _build.lib().tps_sell_spmm
+
+    def run(self, x: torch.Tensor, vec: bool = False) -> torch.Tensor:
+        """y = x A: (batch, n), or (n,) where ``vec`` (one row, x of
+        shape (ldx,) or (1, ldx)). The C call runs in the ``tps.launch``
+        span while a profiler records."""
+        if self._fn is None:
+            if recording():
+                with span("tps.launch"):
+                    return self._plain(x, vec)
+            return self._plain(x, vec)
+        part = x.new_empty(self.pshape)
+        y = x.new_empty(self.vshape if vec else self.yshape)
+        if recording():
+            with span("tps.launch"):
+                rc = self._fn(*self._head, x.data_ptr(), self._scales,
+                              part.data_ptr(), y.data_ptr(), *self._tail)
+        else:
+            rc = self._fn(*self._head, x.data_ptr(), self._scales,
+                          part.data_ptr(), y.data_ptr(), *self._tail)
+        if rc:
+            _build.check(rc, "sell_spmm")
+        sell_spmm.launches += 1
+        return y
+
+    def _plain(self, x, vec):
+        y = sell_spmm_plain(self.idx, self.vals, x.view(1, -1) if vec else x,
+                            scales=self.scales, n=self.n)
+        return y[0] if vec else y
+
+
+def sell_plan(idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, *,
+              scales: torch.Tensor | None = None, n: int | None = None,
+              stream: int | None = None) -> SellPlan:
+    """The ``SellPlan`` of ``sell_spmm(idx, vals, x, scales=scales, n=n)``
+    on ``stream`` (a raw handle; None: the current stream of x's device).
+    Raises what that call would. ``sell_plan.builds`` counts the plans
+    built, ``sell_plan.hits`` the products that reused one and
+    ``sell_plan.rebuilds`` the builds for a key whose plan had gone stale
+    (the last two by ``SellMatrix``); none is ever reset."""
+    plan = SellPlan(idx, vals, x, scales, n, stream)
+    sell_plan.builds += 1
+    return plan
+
+
+sell_plan.builds = 0
+sell_plan.hits = 0
+sell_plan.rebuilds = 0

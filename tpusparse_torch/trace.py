@@ -17,7 +17,9 @@ The spans, each fixed by name:
   choice) and the kernel calls under it;
 - ``tps.launch``: a kernel wrapper in ``kernels/`` that calls the CUDA
   library: its checks, launch shape, output allocation and the ctypes
-  call (its plain version, on the CPU);
+  call (its plain version, on the CPU); for K1, whose checks and launch
+  shape a plan fixes beforehand (``kernels/sell_spmv.py`` ``SellPlan``),
+  the ctypes call alone;
 - ``tps.stop``: a solver's host read of its stopping test
   (``solve.stop_test``): the host blocked until the device catches up.
 """

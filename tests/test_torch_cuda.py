@@ -1838,3 +1838,56 @@ def test_sharded_amg_world1_nccl(cuda, nccl_mesh, kind):
                 / np.linalg.norm(bh)
 
         assert relres(z) <= max(2 * relres(z0), 1e-5)
+
+
+def test_moe_layers_on_the_card(cuda):
+    """DeepSeek-V2's FFN layers (``moe.ffn_layer``) on the card against
+    the plain float64 reference, at test_torch_moe.py's size (hidden 256,
+    16 experts of width 128, top 6, 2 shared, a dense layer of 320), 1e-5
+    as there; the card's layer and the CPU's plain one route alike; the
+    device counter counts the routed experts' union with no host read."""
+    from tpusparse_torch import moe
+    from tpusparse_torch.testing import moe_reference as ref
+
+    hidden, width, experts, dense = 256, 128, 16, 320
+    cfg = {"hidden_size": hidden, "intermediate_size": dense,
+           "moe_intermediate_size": width, "n_routed_experts": experts,
+           "num_experts_per_tok": 6, "n_shared_experts": 2,
+           "scoring_func": "softmax", "topk_method": "greedy",
+           "norm_topk_prob": False, "routed_scaling_factor": 1,
+           "rms_norm_eps": 1e-6, "hidden_act": "silu",
+           "first_k_dense_replace": 1, "moe_layer_freq": 1}
+    g = torch.Generator().manual_seed(23)
+
+    def mat(rows, cols):
+        return ref.prune_half(torch.randn(rows, cols, generator=g)
+                              / rows ** 0.5)
+
+    def triple(w):
+        return mat(hidden, w), mat(hidden, w), mat(w, hidden)
+
+    norm = 1 + 0.25 * torch.rand(hidden, generator=g)
+    layers = [{"norm": norm, "mlp": triple(dense)},
+              {"norm": norm,
+               "router": torch.randn(hidden, experts, generator=g)
+               / hidden ** 0.5,
+               "experts": [triple(width) for _ in range(experts)],
+               "shared": triple(2 * width)}]
+    for batch in (2, 8):
+        x = torch.randn(batch, hidden, generator=g)
+        for i, p in enumerate(layers):
+            m = moe.ffn_layer(cfg, i, p, expect_batch=batch, device=cuda)
+            plain = moe.ffn_layer(cfg, i, p, expect_batch=batch,
+                                  device="cpu")
+            if i == 0:
+                y, want = m(x.to(cuda)), ref.dense_layer(x, p, cfg)
+                assert (y.cpu() - plain(x)).abs().max() < 1e-5
+            else:
+                y, w = m(x.to(cuda), with_weights=True)
+                yp, wp = plain(x, with_weights=True)
+                want = ref.moe_layer(x, p, cfg)
+                assert torch.equal(w.cpu() != 0, wp != 0)
+                live = int((w != 0).any(dim=0).sum())
+                assert m.counters()["moe.live_groups"] == live
+            torch.cuda.synchronize()
+            assert (y.cpu().double() - want).abs().max() < 1e-5

@@ -38,7 +38,7 @@ NEW_MODULES = ("formats.bsr", "formats.tcsr", "formats.dia",
                "parallel.sparse", "parallel.dryrun", "bench.shard_overhead",
                "bench.scaling", "bench.commmodel", "bench.gallery",
                "bench.dynamic", "bench.scale", "cli", "__main__",
-               "examples") + tuple(
+               "examples", "moe", "testing.moe_reference") + tuple(
     f"examples.{m[:-3]}" for m in sorted(os.listdir(os.path.join(
         os.path.dirname(tpusparse_torch.__file__), "examples")))
     if m.startswith("ex") and m.endswith(".py"))

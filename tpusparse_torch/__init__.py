@@ -4,7 +4,9 @@
 BELL and binned SELL packs, picked by ``auto_format`` or by hand, and
 sparse-weight training (``linear_map``, ``trainable_linear``,
 ``nn.SparseLinear``, and over a device mesh ``linear_map_sharded`` and
-``trainable_linear_sharded``) with the pruning and graph on-ramps, and the solver
+``trainable_linear_sharded``) with the pruning and graph on-ramps,
+DeepSeek-V2's FFN layers on pruned weights (``moe.SparseMoE``,
+``moe.SparseSwiGLU``, for inference), and the solver
 path (``solve``, ``eig``, ``amg``, ``reorder``, pack persistence in
 ``formats.io`` and the native host converters in ``native``), with kernels
 written by hand for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first
@@ -41,6 +43,7 @@ from tpusparse_torch.formats import (  # noqa: F401
     matrix_stats_csr,
 )
 from tpusparse_torch.graph import normalized_adjacency  # noqa: F401
+from tpusparse_torch.moe import SparseMoE, SparseSwiGLU, ffn_layer  # noqa: F401
 from tpusparse_torch.ops import spmm, spmv  # noqa: F401
 from tpusparse_torch.prune import block_prune, magnitude_prune, nm_prune  # noqa: F401
 from tpusparse_torch.testing import KernelEntry, SpmvTester  # noqa: F401

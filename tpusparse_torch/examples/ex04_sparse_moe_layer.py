@@ -1,7 +1,9 @@
 """A sparse mixture-of-experts layer: SELL up-projection, a top-1 gate,
 and an AWSP down-projection that reads only the routed experts' blocks.
 
-Counterpart of ``examples/04_sparse_moe_layer.py``.
+Counterpart of ``examples/04_sparse_moe_layer.py``. The same two packs at a
+published model's widths, with its softmax top-k router and shared experts
+and no host round trip, are ``tpusparse_torch.moe.SparseMoE``.
 Run: ``python -m tpusparse_torch.examples.ex04_sparse_moe_layer [--cpu]``.
 """
 

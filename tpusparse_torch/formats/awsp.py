@@ -17,7 +17,9 @@ host plan would sync:
 - ``plan=None`` with a CUDA tensor, or ``plan="device"``: the device plan
   (``device_group_plan``): activity mask, compacted ids and the active count
   stay on the device and the kernel reads the count there — no host sync;
-- an explicit plan (array or tensor of group ids): used as given.
+- an explicit plan (array or tensor of group ids): used as given;
+- a device plan already made, the pair ``(plan, k)`` of ``device_plan(x)``
+  (for a caller that also reads ``k``, the live count): used as given.
 """
 
 from __future__ import annotations
@@ -60,9 +62,22 @@ class PlanSkip:
                                           device=self.device)
         return self._counts[na]
 
+    def device_plan(self, x2d) -> tuple[torch.Tensor, torch.Tensor]:
+        """The device plan ``(plan, k)`` of ``x2d`` (B, m): the live units
+        first, ``k`` their (1,) int32 count on the device (at least 1), with
+        no host sync; ``spmm(x2d, plan=(plan, k))`` runs it."""
+        from tpusparse_torch.kernels.awsp_spmv import device_group_plan
+
+        xt = as_input(x2d, self.device).contiguous()
+        return device_group_plan(xt, self.n_units, self.span)
+
     def _run(self, x2d, plan: Any = None) -> torch.Tensor:
         from tpusparse_torch.kernels.awsp_spmv import device_group_plan
 
+        if isinstance(plan, tuple):
+            plan_t, k = plan
+            return self._product(as_input(x2d, self.device).contiguous(),
+                                 plan_t, k)
         on_card = isinstance(x2d, torch.Tensor) and x2d.device.type == "cuda"
         if isinstance(plan, str):
             if plan != "device":

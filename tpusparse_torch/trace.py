@@ -21,7 +21,10 @@ The spans, each fixed by name:
   shape a plan fixes beforehand (``kernels/sell_spmv.py`` ``SellPlan``),
   the ctypes call alone;
 - ``tps.stop``: a solver's host read of its stopping test
-  (``solve.stop_test``): the host blocked until the device catches up.
+  (``solve.stop_test``): the host blocked until the device catches up;
+- ``tps.moe``, ``tps.moe.route``, ``tps.moe.experts``,
+  ``tps.moe.shared``: a ``moe.SparseMoE`` forward and its router, routed
+  experts and shared experts (``moe.py`` lists them with its counters).
 """
 
 from __future__ import annotations
